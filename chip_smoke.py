@@ -1,0 +1,615 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py                 # every phase; last line {"ok": true, ...}
+    python3 chip_smoke.py --kernels-only  # card, build and kernel checks only
+
+Phases, each printing one JSON line:
+
+1. card:    the card's name and power limit as nvidia-smi reports them;
+2. build:   ``nvcc`` builds every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card, at the
+            shapes the main path gives it plus ragged, u8/u32, f32/bf16 and
+            NaN/inf cases; bit-identical results (scales within rtol 1e-6) and
+            CUDA-event times beside the plain version and the card's bound;
+4. session: the main path through ``repro_torch.launch.notebook.run_notebook``
+            on the card, two sessions under the paper's single-cell policy (the
+            first runs locally and gives the analyzer its history): a
+            Spacenet7-shaped notebook at the paper's 1024x1024x3 tile size (full state >= 1 GiB, most of it CUDA tensors from a seeded
+            torch.Generator, the rest ragged numpy leaves), a forward migration of
+            the reduced set, a re-migration after a one-element in-place change,
+            the return trip, and one quant8+zstd migration of a 64 MiB f32 leaf.
+            Every kernel's launch count must rise in this window, and every
+            batched digest call must make exactly one device->host transfer;
+5. agree:   a small notebook through the same runtime on the card and on the CPU
+            (the plain versions, which the CPU tests hold to the JAX reference):
+            decisions, modeled seconds and bytes must be equal.
+
+Then the ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any
+failure raises and exits non-zero.  Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+CUDA_CORE_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+
+SEED = 7
+N_SCENES = 60                      # 1024x1024x3 uint8 mosaics on the card
+N_KEEP = 32                        # filtered scenes whose edge maps migrate
+TILE = 1024
+FIELD_ELEMS = 16 << 20             # the quant8 leaf: 64 MiB of f32
+CHUNK = 1 << 18
+REPS = 20                          # timed launches per kernel (median)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# ----------------------------------------------------------------------
+# the main path's notebooks
+# ----------------------------------------------------------------------
+
+SETUP = f"""
+import numpy as np
+import torch
+g = torch.Generator(device="cuda").manual_seed({SEED})
+rng = np.random.default_rng({SEED})
+# {N_SCENES} mosaics of {TILE}x{TILE}x3 uint8 ("images from 30 regions")
+scenes = [torch.randint(0, 255, ({TILE}, {TILE}, 3), generator=g,
+                        device="cuda", dtype=torch.uint8)
+          for _ in range({N_SCENES})]
+# normalized float copies (pipeline intermediates; never needed again)
+normalized = [s.float() / 255.0 for s in scenes]
+# ragged per-scene footprint rasters, kept on the host
+footprints = [rng.random(int(n), dtype=np.float32)
+              for n in rng.integers(1 << 20, 3 << 20, {N_SCENES})]
+histograms = [torch.histc(s.float(), bins=64, min=0, max=255).cpu().numpy()
+              for s in scenes]
+dists = np.array([np.abs(np.cumsum(a) - np.cumsum(b)).sum()
+                  for a, b in zip(histograms, histograms[1:])], np.float64)
+keep_idx = sorted(int(i) for i in np.argsort(dists)[-{N_KEEP}:])
+filtered = [normalized[i] for i in keep_idx]
+def sobel(img):
+    gray = img.mean(dim=-1)
+    gx = torch.zeros_like(gray); gy = torch.zeros_like(gray)
+    gx[1:-1] = gray[2:] - gray[:-2]
+    gy[:, 1:-1] = gray[:, 2:] - gray[:, :-2]
+    return torch.sqrt(gx ** 2 + gy ** 2)
+edges = [sobel(f) for f in filtered]
+k_clusters = 4
+del g
+"""
+
+# the compute-intensive cell the analyzer sends remote (K-Means); migrated
+# arrays arrive as host arrays, so the cell moves them onto the card itself
+KMEANS = """
+centroids_out = []
+for img in edges:
+    flat = torch.as_tensor(img, device="cuda").reshape(-1)
+    cent = torch.linspace(float(flat.min()), float(flat.max()), k_clusters,
+                          device="cuda")
+    for _ in range(5):
+        assign = (flat[None, :] - cent[:, None]).abs().argmin(dim=0)
+        for c in range(k_clusters):
+            sel = flat[assign == c]
+            if sel.numel():
+                cent[c] = sel.mean()
+    centroids_out.append(cent.cpu().numpy())
+"""
+
+TWEAK = "edges[0][0, 0] += 1.0\n"
+REPORT = "summary = float(np.mean([c.mean() for c in centroids_out]))\n"
+
+QUANT_SETUP = f"""
+import numpy as np
+import torch
+g = torch.Generator(device="cuda").manual_seed({SEED + 1})
+field = torch.randn({FIELD_ELEMS}, generator=g, device="cuda")
+del g
+"""
+QUANT_HEAVY = """
+field_std = float(torch.as_tensor(field, device="cuda").std())
+"""
+QUANT_REPORT = "out = field_std * 2.0\n"
+
+
+def ipynb(name: str, cells) -> dict:
+    return {"nbformat": 4, "nbformat_minor": 5, "metadata": {"name": name},
+            "cells": [{"id": f"c{i}", "cell_type": "code",
+                       "metadata": {"repro": {"cost": cost}}, "source": src}
+                      for i, (src, cost) in enumerate(cells)]}
+
+
+# ----------------------------------------------------------------------
+# timing
+# ----------------------------------------------------------------------
+
+def time_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn`` in milliseconds, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------------
+# phases
+# ----------------------------------------------------------------------
+
+def phase_card() -> None:
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    line = smi.stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    emit({"phase": "card", "nvidia_smi": line,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    seconds = time.perf_counter() - t0
+    for name in _build.SIGNATURES:
+        _build.load(name)
+    ptxas = {n: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for n, log in reports.items()}
+    emit({"phase": "build", "seconds": seconds, "built": sorted(reports),
+          "ptxas": ptxas})
+
+
+def phase_kernels() -> list[dict]:
+    """Each kernel against its plain version on the card; returns the rows
+    of the ``kernels`` line (launches filled in later)."""
+    import torch
+    t_phase = time.perf_counter()
+    reps = REPS
+
+    from repro_torch.kernels.hash_delta import kernel as hk
+    from repro_torch.kernels.hash_delta import ops as hops
+    from repro_torch.kernels.hash_delta.ref import (
+        block_hash_compare_ref, block_hash_ref,
+    )
+    from repro_torch.kernels.quant_blockwise import kernel as qk
+    from repro_torch.kernels.quant_blockwise.ref import (
+        dequantize_ref, quantize_ref,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    w = hops.weights(dev)
+
+    def rand_rows(nb, dtype):
+        if dtype == torch.uint8:
+            return torch.randint(0, 256, (nb, 1024), generator=g, device=dev,
+                                 dtype=torch.uint8)
+        return torch.randint(-2**31, 2**31 - 1, (nb, 1024), generator=g,
+                             device=dev, dtype=torch.int32)
+
+    def same_int(a, b) -> int:
+        if not torch.equal(a, b):
+            diff = (a.to(torch.int64) - b.to(torch.int64)).abs().max()
+            raise AssertionError(f"kernel and plain version differ "
+                                 f"(max abs {int(diff)})")
+        return 0
+
+    # main-path shapes: the reduced set's digest grid (N_KEEP edge maps of
+    # 1024x1024 f32 = 1024 rows each), its chunk-key byte grid (4 MiB =
+    # 4096 rows each) and the 64 MiB quant8 leaf; then ragged extras
+    main_u32 = N_KEEP * TILE * TILE // 1024
+    main_u8 = N_KEEP * TILE * TILE * 4 // 1024
+    main_q = FIELD_ELEMS // 1024
+    rows = []
+
+    # -- block_hash: u32 and u8 rows ------------------------------------
+    errs, shapes = 0, []
+    for dtype, nbs in ((torch.int32, (main_u32, 1, 9, 1025)),
+                       (torch.uint8, (main_u8, 1, 9))):
+        for nb in nbs:
+            x = rand_rows(nb, dtype)
+            errs = max(errs, same_int(hk.block_hash_kernel(x, w),
+                                      block_hash_ref(x, w)))
+            shapes.append([nb, 1024, str(dtype).removeprefix("torch.")])
+    x = rand_rows(main_u8, torch.uint8)     # timed at the chunk-key shape
+    ms = time_ms(lambda: hk.block_hash_kernel(x, w), reps)
+    plain_ms = time_ms(lambda: block_hash_ref(x, w), max(2, reps // 10))
+    nbytes = x.numel() + w.numel() * 4 + main_u8 * 8
+    b, by = bound(nbytes, x.numel() * 9)
+    rows.append({"name": "block_hash", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/hash_delta.cu",
+                 "replaces": "src/repro/kernels/hash_delta/kernel.py:42",
+                 "launches": 0, "max_abs_err": errs, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                 "library_ms": None, "timed_shape": [main_u8, 1024, "uint8"],
+                 "checked_shapes": shapes})
+
+    # -- block_hash_compare ----------------------------------------------
+    errs, shapes = 0, []
+    for dtype, nbs in ((torch.uint8, (main_u8, 1, 9)),
+                       (torch.int32, (main_u32, 9))):
+        for nb in nbs:
+            x = rand_rows(nb, dtype)
+            prior = block_hash_ref(x, w).clone()
+            prior[nb // 2, 0] += 1                      # one block differs
+            has = torch.ones((nb, 1), dtype=torch.int32, device=dev)
+            has[-1, 0] = 0                              # one block is new
+            hk_, ck = hk.block_hash_compare_kernel(x, w, prior, has)
+            hr, cr = block_hash_compare_ref(x, w, prior, has)
+            errs = max(errs, same_int(hk_, hr), same_int(ck, cr))
+            if nb > 2 and int(ck.sum()) != 2:
+                raise AssertionError("compare flagged the wrong rows")
+            shapes.append([nb, 1024, str(dtype).removeprefix("torch.")])
+    x = rand_rows(main_u8, torch.uint8)
+    prior = block_hash_ref(x, w)
+    has = torch.ones((main_u8, 1), dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: hk.block_hash_compare_kernel(x, w, prior, has), reps)
+    plain_ms = time_ms(lambda: block_hash_compare_ref(x, w, prior, has),
+                       max(2, reps // 10))
+    nbytes = x.numel() + w.numel() * 4 + main_u8 * (8 + 4 + 8 + 4)
+    b, by = bound(nbytes, x.numel() * 9 + main_u8 * 3)
+    rows.append({"name": "block_hash_compare", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/hash_delta.cu",
+                 "replaces": "src/repro/kernels/hash_delta/kernel.py:69",
+                 "launches": 0, "max_abs_err": errs, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                 "library_ms": None, "timed_shape": [main_u8, 1024, "uint8"],
+                 "checked_shapes": shapes})
+
+    # -- quantize / dequantize ---------------------------------------------
+    qerr, derr, shapes = 0.0, 0.0, []
+
+    def check_quant(x2d):
+        nonlocal qerr, derr
+        q, s = qk.quantize_kernel(x2d)
+        qr, sr = quantize_ref(x2d)
+        same_int(q, qr)
+        torch.testing.assert_close(s, sr, rtol=1e-6, atol=0)
+        qerr = max(qerr, float((s - sr).abs().max()))
+        for dt in (torch.float32, torch.bfloat16):
+            y = qk.dequantize_kernel(q, s, dt)
+            yr = dequantize_ref(q, s, dt)
+            # equal values; a NaN (0 * inf from an inf block) matches a NaN
+            torch.testing.assert_close(y, yr, rtol=0, atol=0, equal_nan=True)
+            finite = torch.isfinite(yr)
+            derr = max(derr, float((y[finite].float()
+                                    - yr[finite].float()).abs().max()))
+        shapes.append([x2d.shape[0], 1024, str(x2d.dtype).removeprefix("torch.")])
+
+    xq = torch.randn((main_q, 1024), generator=g, device=dev)
+    check_quant(xq)
+    special = torch.randn((9, 1024), generator=g, device=dev) * 3
+    special[3] = special[3].round()                # exact ties at scale 1
+    special[0, 5] = float("nan")
+    special[1, 7] = float("inf")
+    special[2, 9] = float("-inf")
+    special[4] = 0.0                               # amax 0 -> scale 1
+    for x2d in (special, special.to(torch.bfloat16),
+                xq[:1025].to(torch.bfloat16)):
+        check_quant(x2d.contiguous())
+    ms = time_ms(lambda: qk.quantize_kernel(xq), reps)
+    plain_ms = time_ms(lambda: quantize_ref(xq), max(2, reps // 10))
+    b, by = bound(xq.numel() * (4 + 1) + main_q * 4, xq.numel() * 6)
+    rows.append({"name": "quantize", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/quant_blockwise.cu",
+                 "replaces": "src/repro/kernels/quant_blockwise/kernel.py:27",
+                 "launches": 0, "max_abs_err": qerr, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                 "library_ms": None, "timed_shape": [main_q, 1024, "float32"],
+                 "checked_shapes": shapes})
+    q, s = qk.quantize_kernel(xq)
+    ms = time_ms(lambda: qk.dequantize_kernel(q, s, torch.float32), reps)
+    plain_ms = time_ms(lambda: dequantize_ref(q, s, torch.float32),
+                       max(2, reps // 10))
+    b, by = bound(q.numel() * (1 + 4) + main_q * 4, q.numel())
+    rows.append({"name": "dequantize", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/quant_blockwise.cu",
+                 "replaces": "src/repro/kernels/quant_blockwise/kernel.py:42",
+                 "launches": 0, "max_abs_err": derr, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                 "library_ms": None, "timed_shape": [main_q, 1024, "float32"],
+                 "checked_shapes": shapes})
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "checked": [r["name"] for r in rows],
+          "bit_identical": True, "scale_rtol": 1e-6,
+          "seconds": time.perf_counter() - t_phase})
+    return rows
+
+
+class SyncWatch:
+    """Wraps the reducer's batched digest calls: counts calls, checks each
+    adds exactly one to ``HOST_SYNCS`` when it has blocks to hash, and
+    counts the synchronising CUDA calls torch reports inside it."""
+
+    def __init__(self):
+        self.calls = 0
+        self.seconds = 0.0              # wall time inside the wrapped calls
+        self.cuda_syncs: list[int] = []
+        self.extra: list[str] = []      # what synchronised beyond one
+
+    def wrap(self, fn, has_blocks):
+        import torch
+
+        from repro_torch.kernels.hash_delta import ops as hops
+
+        def wrapped(*args, **kw):
+            before = hops.HOST_SYNCS
+            t0 = time.perf_counter()
+            old = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(old)
+            self.seconds += time.perf_counter() - t0
+            want = 1 if has_blocks(args[0]) else 0
+            if hops.HOST_SYNCS - before != want:
+                raise AssertionError(
+                    f"{fn.__name__}: HOST_SYNCS grew by "
+                    f"{hops.HOST_SYNCS - before}, expected {want}")
+            self.calls += 1
+            syncs = [str(c.message).splitlines()[0] for c in caught
+                     if "called a synchronizing" in str(c.message)]
+            self.cuda_syncs.append(len(syncs))
+            if len(syncs) != 1:
+                self.extra.append(f"{fn.__name__}: {syncs}")
+            return out
+        return wrapped
+
+
+def has_blocks(items) -> bool:
+    """Whether a batched digest call's leaves or payloads hold any data."""
+    import numpy as np
+    import torch
+    return any(x.numel() if isinstance(x, torch.Tensor)
+               else len(x) if isinstance(x, (bytes, bytearray, memoryview))
+               else np.size(x) for x in items)
+
+
+def state_bytes(ns: dict) -> tuple[int, int]:
+    """(all array bytes, bytes of CUDA tensors) of a namespace's arrays and
+    lists of arrays, each buffer counted once."""
+    import numpy as np
+    import torch
+    seen: dict[int, tuple[int, bool]] = {}
+    for v in ns.values():
+        for x in (v if isinstance(v, (list, tuple)) else (v,)):
+            if isinstance(x, torch.Tensor):
+                seen[x.data_ptr()] = (x.numel() * x.element_size(), x.is_cuda)
+            elif isinstance(x, np.ndarray):
+                seen[x.ctypes.data] = (x.nbytes, False)
+    return (sum(n for n, _ in seen.values()),
+            sum(n for n, cuda in seen.values() if cuda))
+
+
+def phase_session(tmp: Path) -> dict:
+    import numpy as np
+    import torch
+
+    import repro_torch.core.reducer as red
+    from repro_torch.kernels.hash_delta import kernel as hk
+    from repro_torch.kernels.hash_delta import ops as hops
+    from repro_torch.kernels.quant_blockwise import kernel as qk
+    from repro_torch.launch.notebook import run_notebook
+
+    main_nb = tmp / "spacenet7_tiles.ipynb"
+    main_nb.write_text(json.dumps(ipynb("spacenet7-tiles", [
+        (SETUP, 0.3), (KMEANS, 600.0), (TWEAK, 0.1), (KMEANS, 600.0),
+        (REPORT, 0.2)])))
+    quant_nb = tmp / "quant_field.ipynb"
+    quant_nb.write_text(json.dumps(ipynb("quant-field", [
+        (QUANT_SETUP, 1.0), (QUANT_HEAVY, 300.0), (QUANT_REPORT, 0.2)])))
+
+    watch = SyncWatch()
+    orig = {n: getattr(red, n) for n in
+            ("digest_leaves", "digest_leaves_delta", "array_chunk_digests_many")}
+    for n, fn in orig.items():
+        setattr(red, n, watch.wrap(fn, has_blocks))
+
+    # capture what the runtime holds, to check the migrated bytes, and the
+    # wall time of each migration (it ends on the host, so it is complete)
+    from repro_torch.core import migration as mig
+    captured, migrate_seconds = {}, []
+    orig_close = mig.HybridRuntime.close
+    orig_migrate = mig.MigrationEngine.migrate
+
+    def close(self):
+        captured[self.nb.name] = {n: e.state.ns for n, e in
+                                  self.envs.items()}
+        return orig_close(self)
+
+    def migrate(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig_migrate(self, *args, **kw)
+        finally:
+            migrate_seconds.append(time.perf_counter() - t0)
+    mig.HybridRuntime.close = close
+    mig.MigrationEngine.migrate = migrate
+
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    qk.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        main, _ = run_notebook(str(main_nb), sessions=2, codec="none",
+                               policy="single", device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        quant, _ = run_notebook(str(quant_nb), sessions=2,
+                                codec="quant8+zstd", policy="single",
+                                device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        for n, fn in orig.items():
+            setattr(red, n, fn)
+        mig.HybridRuntime.close = orig_close
+        mig.MigrationEngine.migrate = orig_migrate
+    launches = {**hk.LAUNCHES, **qk.LAUNCHES}
+
+    # -- what came out -----------------------------------------------------
+    local, remote = (captured["spacenet7-tiles"][k] for k in ("local", "remote"))
+    full, on_card = state_bytes(local)
+    if full < (1 << 30) or 2 * on_card < full:
+        raise AssertionError(f"state {full} B ({on_card} B on the card): "
+                             f"expected >= 1 GiB, at least half on the card")
+    log = main["migration_log"]
+    fwd = [m for m in log if m["dst"] == "remote" and not m["noop"]]
+    if len(fwd) != 2 or fwd[0]["nbytes"] < 100 << 20:
+        raise AssertionError(f"expected two forward migrations, the first "
+                             f">= 100 MiB: {log}")
+    if not CHUNK <= fwd[1]["nbytes"] <= CHUNK + (64 << 10):
+        raise AssertionError(f"re-migration after a one-element change "
+                             f"shipped {fwd[1]['nbytes']} B, expected about "
+                             f"one {CHUNK} B chunk")
+    for a, b in zip(local["edges"], remote["edges"]):
+        if not np.array_equal(a.cpu().numpy(), b):
+            raise AssertionError("a migrated edge map differs from its source")
+    cents = local["centroids_out"]
+    if len(cents) != N_KEEP or not all(c.shape == (4,) and np.isfinite(c).all()
+                                       for c in cents):
+        raise AssertionError("K-Means centroids are not finite (4,) arrays")
+    if not np.isfinite(local["summary"]):
+        raise AssertionError("summary is not finite")
+
+    # the field as the setup cell made it (the return trip replaced the local
+    # copy with the decoded one, as the reference does)
+    src_field = torch.randn(
+        FIELD_ELEMS, generator=torch.Generator(device="cuda").manual_seed(
+            SEED + 1), device="cuda").cpu().numpy()
+    got = captured["quant-field"]["remote"]["field"]
+    blocks = src_field.reshape(-1, 1024)
+    # half a quantization step, plus the f32 rounding of x / s and q * s
+    # (at most 254 ulp of amax relative to the half step)
+    half_step = np.abs(blocks).max(1) / 127 / 2 * (1 + 1e-4)
+    err = np.abs(got.reshape(-1, 1024) - blocks).max(1)
+    if got.dtype != np.float32 or not (err <= half_step).all():
+        raise AssertionError("quant8 round trip exceeds half a step")
+    qfwd = [m for m in quant["migration_log"] if m["dst"] == "remote"]
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the main path")
+    emit({"phase": "session", "device": main["device"],
+          "full_state_bytes": full, "full_state_on_card_bytes": on_card,
+          "wall_seconds": {"main_session": t1 - t0, "quant8_session": t2 - t1,
+                           "migrations": migrate_seconds,
+                           "batched_digest_calls": watch.seconds},
+          "migrations": [{k: m[k] for k in ("src", "dst", "nbytes", "noop")}
+                         | {"names": m["names"][:6]} for m in log],
+          "bytes_shipped": main["migrated_bytes"],
+          "chunks_held": main["chunks_held"],
+          "decisions": main["decisions"],
+          "quant8": {"shipped_bytes": [m["nbytes"] for m in qfwd],
+                     "field_bytes": src_field.nbytes,
+                     "max_err_over_half_step": float((err / half_step).max()),
+                     "decisions": quant["decisions"]},
+          "launches": launches,
+          "batched_digest_calls": watch.calls,
+          "cuda_syncs_per_batched_call": sorted(set(watch.cuda_syncs)),
+          "extra_syncs": watch.extra})
+    if not all(s == 1 for s in watch.cuda_syncs):
+        raise AssertionError(f"synchronising CUDA calls per batched digest "
+                             f"call: {watch.cuda_syncs}, expected 1 each")
+    return launches
+
+
+def phase_agree(tmp: Path) -> None:
+    from repro_torch.launch.notebook import run_notebook
+    t_phase = time.perf_counter()
+    small = tmp / "small.ipynb"
+    setup = SETUP.replace(f"({TILE}, {TILE}, 3)", "(32, 32, 3)").replace(
+        f"range({N_SCENES})", "range(6)").replace(
+        "1 << 20, 3 << 20", "100, 3000").replace(f"[-{N_KEEP}:]", "[-3:]")
+    small.write_text(json.dumps(ipynb("small", [
+        (setup, 0.3), (KMEANS, 600.0), (TWEAK, 0.1), (KMEANS, 600.0),
+        (REPORT, 0.2)])))
+    out = {}
+    for codec in ("zlib", "quant8+zstd"):
+        for device in ("cuda", "cpu"):
+            rep, _ = run_notebook(str(small), sessions=2, codec=codec,
+                                  policy="single", device=device)
+            out[codec, device] = rep
+        a, b = out[codec, "cuda"], out[codec, "cpu"]
+        if (a["decisions"], a["migrated_bytes"], a["modeled_seconds"]) != \
+                (b["decisions"], b["migrated_bytes"], b["modeled_seconds"]):
+            raise AssertionError(f"{codec}: the card and the plain versions "
+                                 f"disagree: {a} vs {b}")
+    emit({"phase": "agree", "codecs": ["zlib", "quant8+zstd"],
+          "migrated_bytes": {c: out[c, "cuda"]["migrated_bytes"]
+                             for c in ("zlib", "quant8+zstd")},
+          "equal": True, "seconds": time.perf_counter() - t_phase})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel checks (no result line)")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+
+    phase_card()
+    phase_build()
+    rows = phase_kernels()
+    if args.kernels_only:
+        emit({"kernels": rows})
+        return 0
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        launches = phase_session(Path(tmp))
+        phase_agree(Path(tmp))
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,53 @@
+# The paper's primary contribution: context-aware execution migration --
+# generalized to an N-environment placement fabric.  This package holds the
+# single-session slice of the PyTorch port; the events/simulator, fleet,
+# gateway, replica and transport planes are not ported yet.
+from repro_torch.core.analyzer import (
+    BlockPolicy, CostMatrixPolicy, Decision, HorizonPolicy, KnowledgePolicy,
+    MigrationAnalyzer, PerfModel, PlacementPolicy, SingleCellPolicy,
+    fit_linear, intersection, substitute_kwarg,
+)
+from repro_torch.core.chunkstore import (
+    CHUNK_BYTES, DiskChunkStore, MemoryChunkStore, array_chunk_digests,
+    digest_bytes, split_chunks,
+)
+from repro_torch.core.context import (
+    ContextDetector, get_sequences, sequence_stats,
+)
+from repro_torch.core.fabric import (
+    LIFECYCLE, EnvironmentRegistry, ExecutionEnvironment, Link,
+)
+from repro_torch.core.interaction import (
+    MODELS, ConfidenceGate, EnsembleModel, FrequencyModel, InteractionModel,
+    MarkovModel, RecencyModel, make_model,
+)
+from repro_torch.core.kb import KnowledgeBase, ParamEstimate, ProvRecord
+from repro_torch.core.migration import (
+    EnvFailure, HybridRuntime, MigrationEngine, MigrationResult,
+    PipelinedMigrationEngine,
+)
+from repro_torch.core.notebook import Cell, Notebook
+from repro_torch.core.reducer import (
+    SerializationFailure, SerializedState, StateReducer,
+)
+from repro_torch.core.simclock import SimClock, WallClock
+from repro_torch.core.state import ExecutionState
+
+__all__ = [
+    "BlockPolicy", "CostMatrixPolicy", "Decision", "HorizonPolicy",
+    "KnowledgePolicy",
+    "MigrationAnalyzer", "PerfModel", "PlacementPolicy", "SingleCellPolicy",
+    "fit_linear", "intersection", "substitute_kwarg", "CHUNK_BYTES",
+    "DiskChunkStore", "MemoryChunkStore", "array_chunk_digests",
+    "digest_bytes", "split_chunks", "ContextDetector",
+    "get_sequences", "sequence_stats", "LIFECYCLE",
+    "EnvironmentRegistry", "ExecutionEnvironment", "Link",
+    "MODELS", "ConfidenceGate", "EnsembleModel", "FrequencyModel",
+    "InteractionModel", "MarkovModel", "RecencyModel", "make_model",
+    "KnowledgeBase", "ParamEstimate",
+    "ProvRecord", "EnvFailure", "HybridRuntime", "MigrationEngine",
+    "MigrationResult",
+    "PipelinedMigrationEngine", "Cell", "Notebook", "SerializationFailure",
+    "SerializedState", "StateReducer", "SimClock",
+    "WallClock", "ExecutionState",
+]
