@@ -7,23 +7,48 @@
 Phases, each printing one JSON line:
 
 1. card:    the card's name and power limit as nvidia-smi reports them;
-2. build:   ``nvcc`` builds every CUDA kernel from ``src/repro_torch/kernels/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card, at the
-            shapes the main path gives it plus ragged, u8/u32, f32/bf16 and
-            NaN/inf cases; bit-identical results (scales within rtol 1e-6) and
-            CUDA-event times beside the plain version and the card's bound;
-4. session: the main path through ``repro_torch.launch.notebook.run_notebook``
-            on the card, two sessions under the paper's single-cell policy (the
-            first runs locally and gives the analyzer its history): a
+2. build:   ``nvcc`` builds every CUDA kernel from ``src/repro_torch/kernels/csrc``,
+            one process per source, all at once;
+3. kernels: the state-plane kernels against their plain PyTorch versions on
+            the card, at the shapes the main path gives them plus ragged,
+            u8/u32, f32/bf16 and NaN/inf cases; bit-identical results (scales
+            within rtol 1e-6) and CUDA-event times beside the plain version
+            and the card's bound;
+4. lm_kernels: flash_attention and ssd_scan against their plain versions
+            (TF32 off for the f32 products), at the serve path's shapes, the
+            CPU tests' shapes and ragged ones, f32 within 2e-5 (flash) and
+            5e-4 (SSD), bf16 outputs within about two bf16 ulps (flash atol
+            = rtol = 8e-3; SSD atol 1e-3, rtol 1.6e-2; both plain versions
+            computing in f32 from the bf16 values, as the kernels do; the SSD
+            state is f32 and held at 5e-4; flash's error against the bf16
+            plain version, which rounds its scores, is reported beside it);
+            the SSD kernel refuses tiles above a block's shared memory;
+            times beside the plain
+            version, the bound and, for flash, PyTorch's
+            scaled_dot_product_attention as a yardstick the port never calls;
+5. session: the state-migration path through
+            ``repro_torch.launch.notebook.run_notebook`` on the card, two
+            sessions under the paper's single-cell policy (the first runs
+            locally and gives the analyzer its history): a
             Spacenet7-shaped notebook at the paper's 1024x1024x3 tile size (full state >= 1 GiB, most of it CUDA tensors from a seeded
             torch.Generator, the rest ragged numpy leaves), a forward migration of
             the reduced set, a re-migration after a one-element in-place change,
             the return trip, and one quant8+zstd migration of a 64 MiB f32 leaf.
-            Every kernel's launch count must rise in this window, and every
-            batched digest call must make exactly one device->host transfer;
-5. agree:   a small notebook through the same runtime on the card and on the CPU
+            Every state-plane kernel's launch count must rise in this window,
+            and every batched digest call must make exactly one device->host
+            transfer;
+6. agree:   a small notebook through the same runtime on the card and on the CPU
             (the plain versions, which the CPU tests hold to the JAX reference):
-            decisions, modeled seconds and bytes must be equal.
+            decisions, modeled seconds and bytes must be equal;
+7. serve:   the LM serving path through ``repro_torch.launch.serve.serve_lm`` at
+            full yi-6b (batch 4, prompt 2048) and full mamba2-370m (batch 8,
+            prompt 2000), seeded bf16 weights, 32 greedy tokens each; one
+            prefill must launch flash_attention 32 times or ssd_scan 48 times
+            (once per layer), every id must lie in [0, padded_vocab); prints
+            prefill seconds, decode tokens/s and peak memory;
+8. serve_agree: the reduced yi-6b and mamba2-370m in f32 on the card and on
+            the CPU with the same weights: logits within 1e-4 (dense) and
+            1e-3 (mamba2), equal greedy ids.
 
 Then the ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero.  Without a CUDA device, or outside a
@@ -44,6 +69,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 
 SEED = 7
 N_SCENES = 60                      # 1024x1024x3 uint8 mosaics on the card
@@ -154,9 +180,10 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int,
+          ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -166,11 +193,7 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
 
 def phase_card() -> None:
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    line = smi.stdout.strip().splitlines()[0]
+    line = card_line()
     print(line, flush=True)
     emit({"phase": "card", "nvidia_smi": line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -345,6 +368,188 @@ def phase_kernels() -> list[dict]:
     torch.cuda.synchronize()
     emit({"phase": "kernels", "checked": [r["name"] for r in rows],
           "bit_identical": True, "scale_rtol": 1e-6,
+          "seconds": time.perf_counter() - t_phase})
+    return rows
+
+
+# the LM serving path: full configs at these batch and prompt sizes
+YI_BATCH, YI_PROMPT = 4, 2048
+MAMBA_BATCH, MAMBA_PROMPT = 8, 2000    # pads to 8 chunks of 256
+GEN = 32
+REDUCED_BATCH, REDUCED_PROMPT = 4, 48  # the CPU tests' serve size
+# (atol, rtol).  bf16: about two bf16 ulps (2**-7 relative) around the
+# measured one-ulp rounding differences; SSD's atol covers f32 summation
+# order where y cancels to near zero.
+TOL = {("flash_attention", "float32"): (2e-5, 2e-5),
+       ("flash_attention", "bfloat16"): (8e-3, 8e-3),
+       ("ssd_scan", "float32"): (5e-4, 5e-4),
+       ("ssd_scan", "bfloat16"): (1e-3, 1.6e-2)}
+
+
+def phase_lm_kernels() -> list[dict]:
+    """flash_attention and ssd_scan against their plain versions on the
+    card, at the serve path's shapes, the CPU tests' shapes and ragged ones;
+    returns their rows of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ops import arrange
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    t_phase = time.perf_counter()
+    # f32 products in full f32 in the plain versions (matmul and cuDNN)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {k: 0.0 for k in TOL}
+
+    def check(name, got, want, dtype):
+        key = (name, str(dtype).removeprefix("torch."))
+        atol, rtol = TOL[key]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        err = float((got.float() - want.float()).abs().max())
+        errs[key] = max(errs[key], err)
+        return err
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # -- flash attention -------------------------------------------------
+    yi, yr = get_config("yi-6b"), get_config("yi-6b", reduced=True)
+    main_fa = (YI_BATCH, yi.num_heads, yi.num_kv_heads, YI_PROMPT,
+               yi.resolved_head_dim)
+    red_fa = (REDUCED_BATCH, yr.num_heads, yr.num_kv_heads, REDUCED_PROMPT,
+              yr.resolved_head_dim)
+    fa_cases = [(main_fa, bf16, True), (main_fa, f32, True),
+                ((1, 4, 4, 128, 64), f32, True), ((2, 8, 2, 256, 64), f32, True),
+                ((1, 8, 1, 128, 128), f32, True), ((1, 6, 6, 192, 32), f32, True),
+                ((1, 4, 4, 128, 64), bf16, True), ((2, 8, 2, 256, 64), bf16, True),
+                ((1, 8, 1, 128, 128), bf16, True), ((1, 6, 6, 192, 32), bf16, True),
+                ((1, 2, 2, 128, 32), f32, False), (red_fa, f32, True),
+                (red_fa, bf16, True), ((1, 8, 2, 1000, 128), bf16, True),
+                ((2, 4, 2, 77, 64), f32, True), ((2, 4, 2, 77, 64), f32, False)]
+    def plain_f32(q, k, v, causal=True):
+        """The plain version on the same values widened to f32 (exactly),
+        rounded to the input dtype at the end: the kernel's arithmetic.
+        The plain version in bf16 also rounds the scores and weights to
+        bf16, which the kernel (like the Pallas kernel) does not."""
+        return attention_ref(q.float(), k.float(), v.float(),
+                             causal=causal).to(q.dtype)
+
+    checked = []
+    for (B, H, KV, S, hd), dtype, causal in fa_cases:
+        q = randn((B, H, S, hd), dtype)
+        k, v = randn((B, KV, S, hd), dtype), randn((B, KV, S, hd), dtype)
+        err = check("flash_attention",
+                    fk.flash_attention_kernel(q, k, v, causal=causal),
+                    plain_f32(q, k, v, causal), dtype)
+        checked.append([B, H, KV, S, hd, str(dtype).removeprefix("torch."),
+                        "causal" if causal else "full", err])
+    B, H, KV, S, hd = main_fa
+    q = randn((B, H, S, hd), bf16)
+    k, v = randn((B, KV, S, hd), bf16), randn((B, KV, S, hd), bf16)
+    vs_bf16_plain = float((fk.flash_attention_kernel(q, k, v).float()
+                           - attention_ref(q, k, v).float()).abs().max())
+    ms = time_ms(lambda: fk.flash_attention_kernel(q, k, v), REPS)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v), max(2, REPS // 10))
+    try:
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), REPS)
+        library_call = "scaled_dot_product_attention(is_causal, enable_gqa)"
+    except TypeError:      # a torch without enable_gqa: repeat kv first
+        kr = k.repeat_interleave(H // KV, dim=1)
+        vr = v.repeat_interleave(H // KV, dim=1)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True), REPS)
+        library_call = "scaled_dot_product_attention(is_causal), kv repeated"
+    flops = 4 * B * H * (S * (S + 1) // 2) * hd
+    b, by = bound(2 * (2 * B * H * S * hd + 2 * B * KV * S * hd), flops,
+                  BF16_OPS_PER_S)
+    rows = [{"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:62",
+             "launches": 0,
+             "max_abs_err": max(errs["flash_attention", "float32"],
+                                errs["flash_attention", "bfloat16"]),
+             "max_abs_err_f32": errs["flash_attention", "float32"],
+             "max_abs_err_bf16": errs["flash_attention", "bfloat16"],
+             "max_abs_err_vs_bf16_plain": vs_bf16_plain,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+             "library_ms": library_ms, "library_call": library_call,
+             "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
+             "flops": flops, "checked_shapes": checked}]
+
+    # -- SSD scan --------------------------------------------------------
+    mb, mr = get_config("mamba2-370m"), get_config("mamba2-370m", reduced=True)
+
+    def ssd_shape(cfg, batch, prompt):
+        Q = min(cfg.ssm_chunk, prompt)
+        return (batch, -(-prompt // Q) * Q, cfg.ssm_heads, cfg.ssm_headdim,
+                cfg.ssm_state, Q)
+
+    def ssd_inputs(B, S, H, P, N, Q, dtype):
+        x = randn((B, S, H, P), dtype)
+        dt = F.softplus(randn((B, S, H), f32) - 1)
+        A = -torch.exp(randn((H,), f32) * 0.3)
+        return arrange(x, dt, A, randn((B, S, N), dtype),
+                       randn((B, S, N), dtype), Q)
+
+    main_ssd = ssd_shape(mb, MAMBA_BATCH, MAMBA_PROMPT)
+    red_ssd = ssd_shape(mr, REDUCED_BATCH, REDUCED_PROMPT)
+    ssd_cases = [(main_ssd, bf16), (main_ssd, f32), (red_ssd, f32),
+                 (red_ssd, bf16)]
+    for shape in ((2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
+                  (1, 64, 8, 32, 16, 64), (1, 300, 2, 32, 64, 100)):
+        ssd_cases += [(shape, f32), (shape, bf16)]
+    checked = []
+    for (B, S, H, P, N, Q), dtype in ssd_cases:
+        ins = ssd_inputs(B, S, H, P, N, Q, dtype)
+        y, st = sk.ssd_scan_kernel(*ins)
+        yr_, sr = ssd_scan_ref(*ins)
+        err = max(check("ssd_scan", y, yr_, dtype),
+                  check("ssd_scan", st, sr, f32))     # the state is f32
+        checked.append([B, S, H, P, N, Q, str(dtype).removeprefix("torch."),
+                        err])
+    try:   # (P, N, Q) = (128, 512, 256) tiles need more than 227 KiB
+        sk.ssd_scan_kernel(*ssd_inputs(1, 256, 1, 128, 512, 256, f32))
+        raise AssertionError("ssd_scan launched tiles above its shared memory")
+    except RuntimeError as e:
+        if "does not take these sizes" not in str(e):
+            raise
+    B, S, H, P, N, Q = main_ssd
+    ins = ssd_inputs(B, S, H, P, N, Q, bf16)
+    ms = time_ms(lambda: sk.ssd_scan_kernel(*ins), REPS)
+    plain_ms = time_ms(lambda: ssd_scan_ref(*ins), max(2, REPS // 10))
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    flops = B * H * nc * (tri * (2 * N + 1 + 2 * P) + 4 * Q * N * P + Q * P
+                          + Q * N + P * N)
+    nbytes = (2 * 2 * B * S * H * P + 2 * 2 * B * S * N + 4 * B * H * S
+              + 4 * B * H * P * N)
+    b, by = bound(nbytes, flops, BF16_OPS_PER_S)
+    rows.append({"name": "ssd_scan", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "replaces": "src/repro/kernels/ssd_scan/kernel.py:71",
+                 "launches": 0,
+                 "max_abs_err": max(errs["ssd_scan", "float32"],
+                                    errs["ssd_scan", "bfloat16"]),
+                 "max_abs_err_f32": errs["ssd_scan", "float32"],
+                 "max_abs_err_bf16": errs["ssd_scan", "bfloat16"],
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                 "bound_by": by, "library_ms": None,
+                 "timed_shape": [B, S, H, P, N, Q, "bfloat16"],
+                 "flops": flops, "checked_shapes": checked})
+    torch.cuda.synchronize()
+    emit({"phase": "lm_kernels", "checked": [r["name"] for r in rows],
+          "tf32": False, "tolerances": {f"{k[0]}/{k[1]}": v
+                                        for k, v in TOL.items()},
+          "max_abs_err": {f"{k[0]}/{k[1]}": v for k, v in errs.items()},
           "seconds": time.perf_counter() - t_phase})
     return rows
 
@@ -576,6 +781,119 @@ def phase_agree(tmp: Path) -> None:
           "equal": True, "seconds": time.perf_counter() - t_phase})
 
 
+def card_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_serve() -> dict:
+    """The LM serving path on the card through ``serve_lm``: full yi-6b and
+    full mamba2-370m with seeded bf16 weights.  One prefill must launch its
+    kernel once per layer (decode runs plain PyTorch); every id must lie in
+    [0, padded_vocab).  Returns the launches of the two kernels."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import LM
+    from repro_torch.models.layers import param_count
+
+    launches = {}
+    for arch, batch, prompt in (("yi-6b", YI_BATCH, YI_PROMPT),
+                                ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT)):
+        cfg = get_config(arch)
+        kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launches()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        out = serve_lm(cfg, batch=batch, prompt_len=prompt, gen=GEN,
+                       seed=SEED, device="cuda", dtype=torch.bfloat16)
+        wall = time.perf_counter() - t0
+        got = {**fk.LAUNCHES, **sk.LAUNCHES}
+        want = {"flash_attention": 0, "ssd_scan": 0, kernel: cfg.num_layers}
+        if got != want:
+            raise AssertionError(f"{arch}: launches {got}, expected {want} "
+                                 f"(one per layer in one prefill)")
+        launches[kernel] = got[kernel]
+        ids = out["ids"]
+        if ids.shape != (batch, GEN) or ids.min() < 0 or \
+                ids.max() >= cfg.padded_vocab:
+            raise AssertionError(f"{arch}: ids {ids.shape} outside "
+                                 f"[0, {cfg.padded_vocab})")
+        for key in ("prefill_logits", "last_logits"):
+            if out[key].shape != (batch, cfg.padded_vocab) or \
+                    not np.isfinite(out[key]).all():
+                raise AssertionError(f"{arch}: {key} not finite of shape "
+                                     f"({batch}, {cfg.padded_vocab})")
+        emit({"phase": "serve", "arch": arch, "card": card_line(),
+              "params": param_count(LM(cfg, device="cpu").spec),
+              "dtype": "bfloat16", "batch": batch, "prompt_len": prompt,
+              "gen": GEN, "prefill_seconds": out["prefill_seconds"],
+              "decode_seconds": out["decode_seconds"],
+              "decode_tokens_per_s": out["decode_tokens_per_s"],
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "wall_seconds_with_init": wall, "launches": got,
+              "ids_sample": ids[0, :8].tolist()})
+        del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_agree() -> None:
+    """The reduced yi-6b and mamba2-370m in f32 through ``serve_lm`` on the
+    card (the kernels) and on the CPU (their plain versions, which the CPU
+    tests hold to the JAX reference), with the same weights: logits within
+    the model tolerances, equal greedy ids."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import LM
+
+    t_phase = time.perf_counter()
+    errs = {}
+    for arch, tol in (("yi-6b", 1e-4), ("mamba2-370m", 1e-3)):
+        cfg = get_config(arch, reduced=True)
+        params = LM(cfg, device="cpu").init(SEED, torch.float32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            before = fk.LAUNCHES["flash_attention"] + sk.LAUNCHES["ssd_scan"]
+            out[dev] = serve_lm(cfg, batch=REDUCED_BATCH,
+                                prompt_len=REDUCED_PROMPT, gen=8, seed=SEED,
+                                device=dev, params=params)
+            ran = fk.LAUNCHES["flash_attention"] + sk.LAUNCHES["ssd_scan"] - before
+            if ran != (cfg.num_layers if dev == "cuda" else 0):
+                raise AssertionError(f"{arch} on {dev}: {ran} kernel launches")
+        a, b = out["cuda"], out["cpu"]
+        for key in ("prefill_logits", "last_logits"):
+            np.testing.assert_allclose(a[key], b[key], atol=tol, rtol=tol,
+                                       err_msg=f"{arch} {key}")
+        if not np.array_equal(a["ids"], b["ids"]):
+            raise AssertionError(f"{arch}: greedy ids differ between the "
+                                 f"card and the CPU")
+        errs[arch] = max(float(np.abs(a[k] - b[k]).max())
+                         for k in ("prefill_logits", "last_logits"))
+    emit({"phase": "serve_agree", "dtype": "float32",
+          "tolerance": {"yi-6b": 1e-4, "mamba2-370m": 1e-3},
+          "max_abs_logit_err": errs, "ids_equal": True,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -595,13 +913,15 @@ def main() -> int:
 
     phase_card()
     phase_build()
-    rows = phase_kernels()
+    rows = phase_kernels() + phase_lm_kernels()
     if args.kernels_only:
         emit({"kernels": rows})
         return 0
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         launches = phase_session(Path(tmp))
         phase_agree(Path(tmp))
+    launches.update(phase_serve())
+    phase_serve_agree()
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"kernels": rows})

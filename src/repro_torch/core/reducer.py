@@ -36,6 +36,7 @@ import marshal
 import pickle
 import types
 import zlib
+from collections import OrderedDict, defaultdict
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -126,9 +127,14 @@ def _host_numpy(a) -> np.ndarray:
 def _tree_flatten(obj) -> tuple[list, str]:
     """jax-compatible flatten: ``(leaves, str(treedef))`` as
     ``jax.tree_util.tree_flatten`` gives them for dicts (keys sorted),
-    lists, tuples and None (an empty node, not a leaf).  Anything else,
-    subclasses of those included, is a leaf."""
+    lists, tuples, None (an empty node, not a leaf), ``OrderedDict`` (keys
+    in insertion order), ``defaultdict`` (keys sorted) and namedtuples (any
+    tuple subclass with ``_fields``).  Anything else, subclasses of dict,
+    list, ``OrderedDict`` and ``defaultdict`` included, is a leaf."""
     leaves: list = []
+
+    def children(values) -> str:
+        return ", ".join(walk(v) for v in values)
 
     def walk(x) -> str:
         t = type(x)
@@ -142,10 +148,19 @@ def _tree_flatten(obj) -> tuple[list, str]:
                                  "pytree dictionary keys.") from e
             return "{" + ", ".join(f"{k!r}: {walk(x[k])}" for k in keys) + "}"
         if t is list:
-            return "[" + ", ".join(walk(v) for v in x) + "]"
+            return "[" + children(x) + "]"
         if t is tuple:
-            inner = [walk(v) for v in x]
-            return "(" + ", ".join(inner) + ("," if len(inner) == 1 else "") + ")"
+            return "(" + children(x) + ("," if len(x) == 1 else "") + ")"
+        if t is OrderedDict:
+            keys = tuple(x)
+            return (f"CustomNode(OrderedDict[{keys!r}], "
+                    f"[{children(x[k] for k in keys)}])")
+        if t is defaultdict:
+            keys = tuple(sorted(x))
+            return (f"CustomNode(defaultdict[{(x.default_factory, keys)!r}], "
+                    f"[{children(x[k] for k in keys)}])")
+        if isinstance(x, tuple) and hasattr(t, "_fields"):
+            return f"CustomNode(namedtuple[{t.__name__}], [{children(x)}])"
         leaves.append(x)
         return "*"
 

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
+_I = ctypes.c_int
 # entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
     "hash_delta": {
@@ -42,6 +43,14 @@ SIGNATURES = {
         "quantize_rows_bf16": (_P, _P, _P, _N, _P),
         "dequantize_rows_f32": (_P, _P, _P, _N, _P),
         "dequantize_rows_bf16": (_P, _P, _P, _N, _P),
+    },
+    "flash_attention": {
+        "flash_attention_f32": (_P, _P, _P, _P, _N, _N, _N, _N, _N, _I, _P),
+        "flash_attention_bf16": (_P, _P, _P, _P, _N, _N, _N, _N, _N, _I, _P),
+    },
+    "ssd_scan": {
+        "ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
+        "ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
     },
 }
 
@@ -126,7 +135,11 @@ def check_tensor(t, what: str, dtypes, shape) -> None:
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+    """Raise if a launch returned a CUDA error code.  The launchers return
+    1 (``cudaErrorInvalidValue``) for sizes their kernel does not take."""
+    if err == 1:
+        raise RuntimeError(f"{what}: the kernel does not take these sizes "
+                           f"(cudaErrorInvalidValue at launch)")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 

@@ -1,0 +1,219 @@
+"""The port's LM (dense and ssm families) against the JAX reference's, on
+the CPU, with the reference's own weights carried across.
+
+Weights come from the reference's ``LM.init(PRNGKey(0), dtype)`` as numpy
+arrays; both models see one 48-token prompt (not a multiple of the reduced
+mamba2's SSD chunk of 32, so the pad path runs), then four greedy decode
+steps.  Tolerances (atol = rtol):
+- f32 dense 1e-4; f32 mamba2 1e-3, because the SSD sums are taken in
+  another order (chunk by chunk, as the kernel does);
+- bf16 5e-2 for both families: activations round to bf16 at other places
+  (the port's attention keeps f32 scores where the reference's XLA
+  attention rounds them to bf16); the largest difference measured on
+  these inputs is 2.7e-2 (cache entries), 1.4e-2 on logits.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as ref_config  # noqa: E402
+from repro.models import LM as RefLM  # noqa: E402
+from repro.models import attention as ref_attn  # noqa: E402
+from repro.models import layers as ref_layers  # noqa: E402
+from repro_torch.configs import ASSIGNED_ARCHS, get_config  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import attention, layers  # noqa: E402
+
+PROMPT, CACHE, STEPS = 48, 56, 4
+F32_TOL = {"yi-6b": 1e-4, "demo-100m": 1e-4, "mamba2-370m": 1e-3}
+BF16_TOL = 5e-2
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _pair(arch, dtype):
+    ref_lm = RefLM(ref_config(arch, reduced=True), max_seq=CACHE)
+    params = ref_lm.init(jax.random.PRNGKey(0), dtype)
+    lm = LM(get_config(arch, reduced=True), max_seq=CACHE, device="cpu")
+    lm.load_reference(jax.tree_util.tree_map(np.asarray, params))
+    return ref_lm, params, lm
+
+
+def _run(arch, dtype, tol, check_ids):
+    ref_lm, params, lm = _pair(arch, dtype)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, lm.cfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    want, rcache = ref_lm.prefill(params, {"tokens": jnp.asarray(toks)},
+                                  cache_len=CACHE)
+    got, cache = lm.prefill(torch.from_numpy(toks), cache_len=CACHE)
+    assert tuple(got.shape) == (2, lm.cfg.padded_vocab)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    assert sorted(cache["stack"]) == sorted(rcache["stack"])
+    for k, v in rcache["stack"].items():
+        assert tuple(cache["stack"][k].shape) == v.shape, k
+        np.testing.assert_allclose(_f32(cache["stack"][k]), _f32(v),
+                                   atol=tol, rtol=tol, err_msg=k)
+    assert cache["pos"].tolist() == np.asarray(rcache["pos"]).tolist()
+    rtok = jnp.argmax(want, axis=-1)[:, None].astype(jnp.int32)
+    tok = got.argmax(dim=-1)[:, None]
+    for _ in range(STEPS):
+        if check_ids:
+            assert tok[:, 0].tolist() == np.asarray(rtok)[:, 0].tolist()
+        want, rcache = ref_lm.decode_step(params, rcache, {"token": rtok})
+        got, cache = lm.decode_step(cache, tok if check_ids
+                                    else torch.from_numpy(np.array(rtok)))
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+        rtok = jnp.argmax(want, axis=-1)[:, None].astype(jnp.int32)
+        tok = got.argmax(dim=-1)[:, None]
+
+
+@pytest.mark.parametrize("arch", sorted(F32_TOL))
+def test_prefill_and_decode_match_the_reference_f32(arch):
+    _run(arch, jnp.float32, F32_TOL[arch], check_ids=True)
+
+
+@pytest.mark.parametrize("arch", sorted(F32_TOL))
+def test_prefill_and_decode_match_the_reference_bf16(arch):
+    """bf16 weights: the port decodes the reference's tokens (no id check)."""
+    _run(arch, jnp.bfloat16, BF16_TOL, check_ids=False)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-370m"])
+def test_own_init_follows_the_reference_rules(arch):
+    """Same tree, shapes and dtypes as the reference's init; truncated
+    normals within 2 sigma; the zeros, ones, dt_bias and a_log rules."""
+    ref_lm = RefLM(ref_config(arch, reduced=True))
+    want = jax.eval_shape(lambda: ref_lm.init(jax.random.PRNGKey(0)))
+    lm = LM(get_config(arch, reduced=True), device="cpu")
+    got = lm.init(torch.Generator().manual_seed(0), torch.float32)
+    flat_want = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_got = layers.spec_leaves(got)
+    assert [jax.tree_util.keystr(p) for p, _ in flat_want] == \
+        [p for p, _ in flat_got]
+    assert all(tuple(t.shape) == w.shape for (_, w), (_, t) in
+               zip(flat_want, flat_got))
+    emb = got["embed"]
+    assert float(emb.abs().max()) <= 2 * 0.02 + 1e-6
+    assert abs(float(emb.std()) - 0.02 * 0.88) < 2e-3      # truncated sigma
+    stack = got["decoder"]["stack"]
+    if arch == "mamba2-370m":
+        mixer = stack["mixer"]
+        dt = torch.nn.functional.softplus(mixer["dt_bias"])
+        assert float(dt.min()) >= 1e-3 - 1e-7 and float(dt.max()) <= 0.1 + 1e-7
+        a = mixer["A_log"].exp()
+        assert float(a.min()) >= 1.0 and float(a.max()) <= 16.0
+        assert bool((mixer["D"] == 1).all()) and bool((stack["ln"] == 0).all())
+        w = mixer["w_x"]                                     # (L, d, din)
+    else:
+        assert bool((stack["ln1"] == 0).all())
+        w = stack["attn"]["wq"]                              # (L, d, H, hd)
+    fan_in = int(np.prod(w.shape[1:-1]))
+    assert float(w.abs().max()) <= 2 / np.sqrt(fan_in) + 1e-6
+
+
+def test_apply_rope_pairs_even_and_odd_elements():
+    """The reference rotates (0::2, 1::2) pairs and interleaves them back,
+    not the rotate-half layout; partial rotary leaves the tail as it is."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    pos = np.tile(np.arange(5, dtype=np.int32), (2, 1)) + 7
+    for pct, theta in ((1.0, 10_000.0), (0.25, 5e6)):
+        want = ref_layers.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                     rope_pct=pct, theta=theta)
+        got = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                                rope_pct=pct, theta=theta)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+    half = x.shape[-1] // 2
+    rotate_half = np.concatenate([-x[..., half:], x[..., :half]], -1)
+    assert not np.allclose(got.numpy()[..., :4], rotate_half[..., :4])
+
+
+def test_rms_norm_scales_by_one_plus_w_in_f32():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((3, 64)).astype(np.float32) * 4
+    w = rng.standard_normal(64).astype(np.float32) * 0.1
+    want = ref_layers.rms_norm(jnp.asarray(x).astype(jnp.bfloat16),
+                               jnp.asarray(w).astype(jnp.bfloat16), 1e-5)
+    got = layers.rms_norm(torch.from_numpy(x).bfloat16(),
+                          torch.from_numpy(w).bfloat16(), 1e-5)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
+def test_cache_write_stays_in_range_where_the_reference_clamps():
+    rng = np.random.default_rng(2)
+    kc, vc = (rng.standard_normal((2, 2, 6, 4)).astype(np.float32)
+              for _ in range(2))
+    nk, nv = (rng.standard_normal((2, 1, 2, 4)).astype(np.float32)
+              for _ in range(2))
+    pos = np.array([1, 5], np.int32)
+    want = ref_attn.cache_write_plain(*map(jnp.asarray, (kc, vc, nk, nv, pos)))
+    got = attention.cache_write_plain(*(torch.from_numpy(a.copy())
+                                        for a in (kc, vc, nk, nv, pos)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # one past the end: the reference overwrites the last slot, the port's
+    # decode step raises before it writes
+    past = np.array([6, 6], np.int32)
+    clamped = ref_attn.cache_write_plain(*map(jnp.asarray, (kc, vc, nk, nv, past)))
+    np.testing.assert_array_equal(np.asarray(clamped[0])[0, :, 5], nk[0, 0])
+    lm = LM(get_config("yi-6b", reduced=True), max_seq=6, device="cpu")
+    lm.init(0, torch.float32)
+    toks = torch.zeros((2, 5), dtype=torch.long)
+    _, cache = lm.prefill(toks, cache_len=6)
+    _, cache = lm.decode_step(cache, toks[:, :1])            # slot 5, the last
+    assert cache["pos"].tolist() == [6, 6] and cache["filled"] == 6
+    k_before = cache["stack"]["k"].clone()
+    with pytest.raises(IndexError, match="outside a cache of 6 slots"):
+        lm.decode_step(cache, toks[:, :1])
+    assert torch.equal(cache["stack"]["k"], k_before)
+
+
+def test_mamba2_decode_state_stays_in_the_cache_dtype():
+    _, _, lm = _pair("mamba2-370m", jnp.bfloat16)
+    toks = torch.zeros((2, 8), dtype=torch.long)
+    _, cache = lm.prefill(toks, cache_len=10)
+    assert cache["stack"]["ssm"].dtype == torch.bfloat16
+    _, cache = lm.decode_step(cache, toks[:, :1])
+    assert cache["stack"]["ssm"].dtype == torch.bfloat16
+    assert cache["pos"].tolist() == [9, 9]
+
+
+@pytest.mark.parametrize("arch", sorted(ASSIGNED_ARCHS) + ["demo-100m"])
+def test_configs_equal_the_reference(arch):
+    """The port's configs are copies: field for field equal, full and
+    reduced, with the same derived sizes."""
+    import dataclasses
+    for reduced in (False, True):
+        got, want = get_config(arch, reduced), ref_config(arch, reduced)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert (got.padded_vocab, got.resolved_head_dim, got.layer_kinds(),
+                got.count_params()) == \
+            (want.padded_vocab, want.resolved_head_dim, want.layer_kinds(),
+             want.count_params())
+
+
+@pytest.mark.parametrize("arch", sorted(ASSIGNED_ARCHS))
+def test_unported_families_name_their_roadmap_item(arch):
+    cfg = get_config(arch, reduced=True)
+    if cfg.family in ("dense", "ssm"):
+        assert LM(cfg, device="cpu").cfg is cfg
+        return
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9"):
+        LM(cfg, device="cpu")
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        LM(get_config("yi-6b", reduced=True))

@@ -7,6 +7,8 @@ stand where the reference holds jax arrays: 32-bit and narrower tensors
 against equal jax arrays, 64-bit and complex tensors against equal numpy
 arrays (jax holds no 64-bit arrays with x64 off).
 """
+from collections import OrderedDict, defaultdict, namedtuple
+
 import numpy as np
 import pytest
 
@@ -285,6 +287,61 @@ def test_tree_flatten_matches_jax(obj):
     assert got_treedef == str(treedef)
     assert len(got_leaves) == len(leaves)
     assert all(a is b for a, b in zip(got_leaves, leaves))
+
+
+Pair = namedtuple("P", ["w", "b"])
+
+
+def _containers(a, b) -> dict:
+    """Names holding jax's other built-in nodes, built from arrays a, b."""
+    return {
+        "od": OrderedDict([("b", a), ("a", b)]),            # insertion order
+        "dd": defaultdict(list, {"b": a, "a": b}),          # keys sorted
+        "nt": Pair(a, b),
+        "nested": {"layer": Pair(a, None), "opt": OrderedDict(m=b),
+                   "hist": [defaultdict(int, {2: a, 1: (b,)})]},
+    }
+
+
+@pytest.mark.parametrize("name", ["od", "dd", "nt", "nested"])
+def test_tree_flatten_makes_nodes_of_ordered_default_and_named(name):
+    """H5 repaired: OrderedDict, defaultdict and namedtuple are nodes, as in
+    jax, with jax's treedef strings."""
+    obj = _containers(np.zeros(2), np.ones(3))[name]
+    leaves, treedef = jax.tree_util.tree_flatten(obj)
+    got_leaves, got_treedef = _tree_flatten(obj)
+    assert got_treedef == str(treedef)
+    assert len(got_leaves) == len(leaves) == (4 if name == "nested" else 2)
+    assert all(x is y for x, y in zip(got_leaves, leaves))
+
+
+def test_tree_flatten_treedef_strings_as_jax_prints_them():
+    c = _containers(np.zeros(2), np.ones(3))
+    assert _tree_flatten(c["od"])[1] == \
+        "PyTreeDef(CustomNode(OrderedDict[('b', 'a')], [*, *]))"
+    assert _tree_flatten(c["dd"])[1] == \
+        "PyTreeDef(CustomNode(defaultdict[(<class 'list'>, ('a', 'b'))], [*, *]))"
+    assert _tree_flatten(c["nt"])[1] == \
+        "PyTreeDef(CustomNode(namedtuple[P], [*, *]))"
+    # subclasses of the dict types stay leaves, as in jax
+    sub = type("Sub", (OrderedDict,), {})(a=np.zeros(1))
+    assert _tree_flatten(sub)[1] == str(jax.tree_util.tree_flatten(sub)[1])
+
+
+@pytest.mark.parametrize("kind", ["host", "device"])
+def test_digest_many_of_containers_matches_the_reference(kind):
+    rr, pr = _reducers()
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal(3000).astype(np.float32)
+    b = rng.integers(0, 9, 700).astype(np.int32)
+    if kind == "host":
+        ref_ns = port_ns = _containers(a, b)
+    else:
+        ref_ns = _containers(jnp.asarray(a), jnp.asarray(b))
+        port_ns = _containers(torch.from_numpy(a), torch.from_numpy(b))
+    assert pr.digest_many(port_ns) == rr.digest_many(ref_ns)
+    for n in port_ns:
+        assert pr.digest(port_ns[n]) == rr.digest(ref_ns[n]), n
 
 
 def test_cuda_without_a_card_raises():

@@ -157,6 +157,35 @@ def test_port_runs_the_quickstart_migration_without_jax():
     assert loaded == []
 
 
+_ISOLATED_SERVE = r"""
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["ml_dtypes"] = None
+import repro_torch.configs
+import repro_torch.models
+from repro_torch.launch.serve import serve_lm
+shapes = []
+for arch, prompt in (("yi-6b", 12), ("mamba2-370m", 40)):
+    out = serve_lm(repro_torch.configs.get_config(arch, reduced=True),
+                   batch=2, prompt_len=prompt, gen=3, device="cpu")
+    shapes.append(out["ids"].shape)
+loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+print(repr((shapes, loaded)))
+"""
+
+
+def test_port_serves_a_reduced_lm_without_jax():
+    env = {k: os.environ[k] for k in ("HOME", "TMPDIR", "PATH")
+           if k in os.environ}
+    out = subprocess.run([sys.executable, "-c", _ISOLATED_SERVE],
+                         capture_output=True, text=True, timeout=120,
+                         env={**env, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    shapes, loaded = eval(out.stdout.strip())  # noqa: S307
+    assert shapes == [(2, 3), (2, 3)]
+    assert loaded == []
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
