@@ -14,18 +14,19 @@ Phases, each printing one JSON line:
             u8/u32, f32/bf16 and NaN/inf cases; bit-identical results (scales
             within rtol 1e-6) and CUDA-event times beside the plain version
             and the card's bound;
-4. lm_kernels: flash_attention and ssd_scan against their plain versions
-            (TF32 off for the f32 products), at the serve path's shapes, the
-            CPU tests' shapes and ragged ones, f32 within 2e-5 (flash) and
-            5e-4 (SSD), bf16 outputs within about two bf16 ulps (flash atol
-            = rtol = 8e-3; SSD atol 1e-3, rtol 1.6e-2; both plain versions
-            computing in f32 from the bf16 values, as the kernels do; the SSD
-            state is f32 and held at 5e-4; flash's error against the bf16
-            plain version, which rounds its scores, is reported beside it);
-            the SSD kernel refuses tiles above a block's shared memory;
-            times beside the plain
-            version, the bound and, for flash, PyTorch's
-            scaled_dot_product_attention as a yardstick the port never calls;
+4. lm_kernels: flash_attention, ssd_scan and rglru_scan against their plain
+            versions (TF32 off for the f32 products), at the serve path's
+            shapes (flash at yi-6b's hd 128 and recurrentgemma's hd 256), the
+            CPU tests' shapes and ragged ones, f32 within 2e-5 (flash), 5e-4
+            (SSD) and 1e-5 (RG-LRU), bf16 outputs within about two bf16 ulps
+            (flash atol = rtol = 8e-3; SSD and RG-LRU atol 1e-3, rtol 1.6e-2;
+            the plain versions computing in f32 from the bf16 values, as the
+            kernels do; the SSD state is f32 and held at 5e-4; flash's error
+            against the bf16 plain version, which rounds its scores, is
+            reported beside it); the SSD kernel refuses tiles above a
+            block's shared memory; times beside the plain version, the bound
+            and, for flash, PyTorch's scaled_dot_product_attention as a
+            yardstick the port never calls;
 5. session: the state-migration path through
             ``repro_torch.launch.notebook.run_notebook`` on the card, two
             sessions under the paper's single-cell policy (the first runs
@@ -41,14 +42,19 @@ Phases, each printing one JSON line:
             (the plain versions, which the CPU tests hold to the JAX reference):
             decisions, modeled seconds and bytes must be equal;
 7. serve:   the LM serving path through ``repro_torch.launch.serve.serve_lm`` at
-            full yi-6b (batch 4, prompt 2048) and full mamba2-370m (batch 8,
-            prompt 2000), seeded bf16 weights, 32 greedy tokens each; one
-            prefill must launch flash_attention 32 times or ssd_scan 48 times
-            (once per layer), every id must lie in [0, padded_vocab); prints
-            prefill seconds, decode tokens/s and peak memory;
-8. serve_agree: the reduced yi-6b and mamba2-370m in f32 on the card and on
-            the CPU with the same weights: logits within 1e-4 (dense) and
-            1e-3 (mamba2), equal greedy ids.
+            full yi-6b (batch 4, prompt 2048), full mamba2-370m (batch 8,
+            prompt 2000) and full recurrentgemma-9b (batch 4, prompt 2048,
+            its local window), seeded bf16 weights, 32 greedy tokens each;
+            one prefill must launch flash_attention 32 times (yi-6b),
+            ssd_scan 48 times (mamba2), rglru_scan 26 and flash_attention 12
+            times (recurrentgemma), once per layer; every id must lie in [0,
+            padded_vocab); prints prefill seconds, decode tokens/s and the
+            peak memory of prefill and decode;
+8. serve_agree: the reduced yi-6b, mamba2-370m and recurrentgemma-9b
+            (prompts 48, full causal attention through flash, and 64, banded
+            attention) in f32 on the card and on the CPU with the same
+            weights: logits within 1e-4 (dense, hybrid) and 1e-3 (mamba2),
+            equal greedy ids.
 
 Then the ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero.  Without a CUDA device, or outside a
@@ -383,19 +389,24 @@ REDUCED_BATCH, REDUCED_PROMPT = 4, 48  # the CPU tests' serve size
 TOL = {("flash_attention", "float32"): (2e-5, 2e-5),
        ("flash_attention", "bfloat16"): (8e-3, 8e-3),
        ("ssd_scan", "float32"): (5e-4, 5e-4),
-       ("ssd_scan", "bfloat16"): (1e-3, 1.6e-2)}
+       ("ssd_scan", "bfloat16"): (1e-3, 1.6e-2),
+       ("rglru_scan", "float32"): (1e-5, 1e-5),
+       ("rglru_scan", "bfloat16"): (1e-3, 1.6e-2)}
+RG_BATCH, RG_PROMPT = 4, 2048          # recurrentgemma-9b: the local window
 
 
 def phase_lm_kernels() -> list[dict]:
-    """flash_attention and ssd_scan against their plain versions on the
-    card, at the serve path's shapes, the CPU tests' shapes and ragged ones;
-    returns their rows of the ``kernels`` line."""
+    """flash_attention, ssd_scan and rglru_scan against their plain versions
+    on the card, at the serve path's shapes, the CPU tests' shapes and ragged
+    ones; returns their rows of the ``kernels`` line."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rg_lru import kernel as rk
+    from repro_torch.kernels.rg_lru.ref import rglru_scan_ref
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.kernels.ssd_scan.ops import arrange
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
@@ -423,10 +434,17 @@ def phase_lm_kernels() -> list[dict]:
 
     # -- flash attention -------------------------------------------------
     yi, yr = get_config("yi-6b"), get_config("yi-6b", reduced=True)
+    rg, rgr = (get_config("recurrentgemma-9b"),
+               get_config("recurrentgemma-9b", reduced=True))
     main_fa = (YI_BATCH, yi.num_heads, yi.num_kv_heads, YI_PROMPT,
                yi.resolved_head_dim)
     red_fa = (REDUCED_BATCH, yr.num_heads, yr.num_kv_heads, REDUCED_PROMPT,
               yr.resolved_head_dim)
+    # recurrentgemma's local attention: MQA, hd 256
+    rg_fa = (RG_BATCH, rg.num_heads, rg.num_kv_heads, RG_PROMPT,
+             rg.resolved_head_dim)
+    rg_red_fa = (REDUCED_BATCH, rgr.num_heads, rgr.num_kv_heads,
+                 REDUCED_PROMPT, rgr.resolved_head_dim)
     fa_cases = [(main_fa, bf16, True), (main_fa, f32, True),
                 ((1, 4, 4, 128, 64), f32, True), ((2, 8, 2, 256, 64), f32, True),
                 ((1, 8, 1, 128, 128), f32, True), ((1, 6, 6, 192, 32), f32, True),
@@ -434,7 +452,11 @@ def phase_lm_kernels() -> list[dict]:
                 ((1, 8, 1, 128, 128), bf16, True), ((1, 6, 6, 192, 32), bf16, True),
                 ((1, 2, 2, 128, 32), f32, False), (red_fa, f32, True),
                 (red_fa, bf16, True), ((1, 8, 2, 1000, 128), bf16, True),
-                ((2, 4, 2, 77, 64), f32, True), ((2, 4, 2, 77, 64), f32, False)]
+                ((2, 4, 2, 77, 64), f32, True), ((2, 4, 2, 77, 64), f32, False),
+                (rg_fa, bf16, True), ((2, 16, 1, 1000, 256), f32, True),
+                ((1, 4, 1, 77, 256), f32, True), ((1, 4, 1, 77, 256), f32, False),
+                ((1, 16, 1, 1000, 256), bf16, True), (rg_red_fa, f32, True),
+                (rg_red_fa, bf16, True)]
     def plain_f32(q, k, v, causal=True):
         """The plain version on the same values widened to f32 (exactly),
         rounded to the input dtype at the end: the kernel's arithmetic.
@@ -452,26 +474,34 @@ def phase_lm_kernels() -> list[dict]:
                     plain_f32(q, k, v, causal), dtype)
         checked.append([B, H, KV, S, hd, str(dtype).removeprefix("torch."),
                         "causal" if causal else "full", err])
-    B, H, KV, S, hd = main_fa
-    q = randn((B, H, S, hd), bf16)
-    k, v = randn((B, KV, S, hd), bf16), randn((B, KV, S, hd), bf16)
-    vs_bf16_plain = float((fk.flash_attention_kernel(q, k, v).float()
-                           - attention_ref(q, k, v).float()).abs().max())
-    ms = time_ms(lambda: fk.flash_attention_kernel(q, k, v), REPS)
-    plain_ms = time_ms(lambda: attention_ref(q, k, v), max(2, REPS // 10))
-    try:
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), REPS)
-        library_call = "scaled_dot_product_attention(is_causal, enable_gqa)"
-    except TypeError:      # a torch without enable_gqa: repeat kv first
-        kr = k.repeat_interleave(H // KV, dim=1)
-        vr = v.repeat_interleave(H // KV, dim=1)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, kr, vr, is_causal=True), REPS)
-        library_call = "scaled_dot_product_attention(is_causal), kv repeated"
-    flops = 4 * B * H * (S * (S + 1) // 2) * hd
-    b, by = bound(2 * (2 * B * H * S * hd + 2 * B * KV * S * hd), flops,
-                  BF16_OPS_PER_S)
+
+    def time_flash(B, H, KV, S, hd):
+        """Kernel, plain version and SDPA at one bf16 causal shape."""
+        q = randn((B, H, S, hd), bf16)
+        k, v = randn((B, KV, S, hd), bf16), randn((B, KV, S, hd), bf16)
+        vs_bf16_plain = float((fk.flash_attention_kernel(q, k, v).float()
+                               - attention_ref(q, k, v).float()).abs().max())
+        ms = time_ms(lambda: fk.flash_attention_kernel(q, k, v), REPS)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v), max(2, REPS // 10))
+        try:
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), REPS)
+            library_call = "scaled_dot_product_attention(is_causal, enable_gqa)"
+        except TypeError:      # a torch without enable_gqa: repeat kv first
+            kr = k.repeat_interleave(H // KV, dim=1)
+            vr = v.repeat_interleave(H // KV, dim=1)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, kr, vr, is_causal=True), REPS)
+            library_call = "scaled_dot_product_attention(is_causal), kv repeated"
+        flops = 4 * B * H * (S * (S + 1) // 2) * hd
+        b, by = bound(2 * (2 * B * H * S * hd + 2 * B * KV * S * hd), flops,
+                      BF16_OPS_PER_S)
+        return {"max_abs_err_vs_bf16_plain": vs_bf16_plain,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                "library_ms": library_ms, "library_call": library_call,
+                "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
+                "flops": flops}
+
     rows = [{"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/kernel.py:62",
@@ -480,11 +510,9 @@ def phase_lm_kernels() -> list[dict]:
                                 errs["flash_attention", "bfloat16"]),
              "max_abs_err_f32": errs["flash_attention", "float32"],
              "max_abs_err_bf16": errs["flash_attention", "bfloat16"],
-             "max_abs_err_vs_bf16_plain": vs_bf16_plain,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-             "library_ms": library_ms, "library_call": library_call,
-             "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
-             "flops": flops, "checked_shapes": checked}]
+             **time_flash(*main_fa),
+             "hd256": time_flash(*rg_fa),   # recurrentgemma-9b's prefill
+             "checked_shapes": checked}]
 
     # -- SSD scan --------------------------------------------------------
     mb, mr = get_config("mamba2-370m"), get_config("mamba2-370m", reduced=True)
@@ -545,6 +573,53 @@ def phase_lm_kernels() -> list[dict]:
                  "bound_by": by, "library_ms": None,
                  "timed_shape": [B, S, H, P, N, Q, "bfloat16"],
                  "flops": flops, "checked_shapes": checked})
+
+    # -- RG-LRU scan -----------------------------------------------------
+    W_rg = rg.lru_width
+
+    def rglru_inputs(B, S, W, dtype):
+        """The CPU tests' distribution: a in (0, 0.98), b about 0.1."""
+        a = torch.sigmoid(randn((B, S, W), f32)) * 0.98
+        return a.to(dtype), (randn((B, S, W), f32) * 0.1).to(dtype)
+
+    main_rg = (RG_BATCH, RG_PROMPT, W_rg)
+    rg_cases = [(main_rg, f32), (main_rg, bf16),
+                ((REDUCED_BATCH, REDUCED_PROMPT, rgr.lru_width), f32),
+                ((REDUCED_BATCH, 64, rgr.lru_width), f32),
+                ((2, 77, 100), f32), ((2, 77, 100), bf16),
+                ((1, 2000, W_rg), f32), ((1, 2000, W_rg), bf16),
+                ((3, 1, 33), f32)]
+    for shape in ((2, 128, 64), (1, 256, 128), (3, 64, 32)):
+        rg_cases += [(shape, f32), (shape, bf16)]
+    checked = []
+    for (B, S, W), dtype in rg_cases:
+        a, b_ = rglru_inputs(B, S, W, dtype)
+        h, last = rk.rglru_scan_kernel(a, b_)
+        # the plain version on the same values widened to f32, rounded to
+        # the input dtype at the end (for f32 inputs, the plain version)
+        hr, lr = (t.to(dtype) for t in rglru_scan_ref(a.float(), b_.float()))
+        err = max(check("rglru_scan", h, hr, dtype),
+                  check("rglru_scan", last, lr, dtype))
+        if not torch.equal(last, h[:, -1]):
+            raise AssertionError("rglru_scan: the final state is not h[:, -1]")
+        checked.append([B, S, W, str(dtype).removeprefix("torch."), err])
+    B, S, W = main_rg
+    a, b_ = rglru_inputs(B, S, W, f32)
+    ms = time_ms(lambda: rk.rglru_scan_kernel(a, b_), REPS)
+    plain_ms = time_ms(lambda: rglru_scan_ref(a, b_), 2)
+    b, by = bound(4 * (3 * B * S * W + B * W), 2 * B * S * W)
+    rows.append({"name": "rglru_scan", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
+                 "replaces": "src/repro/kernels/rg_lru/kernel.py:40",
+                 "launches": 0,
+                 "max_abs_err": max(errs["rglru_scan", "float32"],
+                                    errs["rglru_scan", "bfloat16"]),
+                 "max_abs_err_f32": errs["rglru_scan", "float32"],
+                 "max_abs_err_bf16": errs["rglru_scan", "bfloat16"],
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                 "bound_by": by, "library_ms": None,
+                 "timed_shape": [B, S, W, "float32"],
+                 "checked_shapes": checked})
     torch.cuda.synchronize()
     emit({"phase": "lm_kernels", "checked": [r["name"] for r in rows],
           "tf32": False, "tolerances": {f"{k[0]}/{k[1]}": v
@@ -788,44 +863,73 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def lm_kernels():
+    """The LM kernels' wrapper modules: flash_attention, ssd_scan, rglru_scan."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rg_lru import kernel as rk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    return fk, sk, rk
+
+
+def lm_launches() -> dict:
+    return {k: v for m in lm_kernels() for k, v in m.LAUNCHES.items()}
+
+
+def expected_launches(cfg, prompt: int) -> dict:
+    """One prefill's launches: the SSD scan in every ssm layer, the RG-LRU
+    scan in every rec layer, flash in every attention layer except where
+    the reference's dispatch takes banded attention (a local window, and S
+    a multiple of it above it)."""
+    kinds = cfg.layer_kinds()
+    w = cfg.local_window if cfg.block_pattern else 0
+    banded = bool(w) and prompt > w and prompt % w == 0
+    return {"flash_attention": 0 if banded else kinds.count("attn"),
+            "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
+
+
 def phase_serve() -> dict:
-    """The LM serving path on the card through ``serve_lm``: full yi-6b and
-    full mamba2-370m with seeded bf16 weights.  One prefill must launch its
-    kernel once per layer (decode runs plain PyTorch); every id must lie in
-    [0, padded_vocab).  Returns the launches of the two kernels."""
+    """The LM serving path on the card through ``serve_lm``: full yi-6b,
+    full mamba2-370m and full recurrentgemma-9b with seeded bf16 weights.
+    One prefill must launch each layer's kernel once (decode runs plain
+    PyTorch): flash 32 (yi-6b); SSD 48 (mamba2); RG-LRU 26 and flash 12
+    (recurrentgemma, whose prompt of 2048 equals its window, so its
+    attention layers run full causal attention through flash).  Every id
+    must lie in [0, padded_vocab).  Returns the launches of the kernels,
+    summed over the three models."""
     import gc
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models import LM
     from repro_torch.models.layers import param_count
 
     launches = {}
     for arch, batch, prompt in (("yi-6b", YI_BATCH, YI_PROMPT),
-                                ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT)):
+                                ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT),
+                                ("recurrentgemma-9b", RG_BATCH, RG_PROMPT)):
         cfg = get_config(arch)
-        kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+        want = expected_launches(cfg, prompt)
+        if arch == "recurrentgemma-9b" and want != {
+                "flash_attention": 12, "ssd_scan": 0, "rglru_scan": 26}:
+            raise AssertionError(f"{arch}: expected launches {want}")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fk.reset_launches()
-        sk.reset_launches()
+        for m in lm_kernels():
+            m.reset_launches()
         t0 = time.perf_counter()
         out = serve_lm(cfg, batch=batch, prompt_len=prompt, gen=GEN,
                        seed=SEED, device="cuda", dtype=torch.bfloat16)
         wall = time.perf_counter() - t0
-        got = {**fk.LAUNCHES, **sk.LAUNCHES}
-        want = {"flash_attention": 0, "ssd_scan": 0, kernel: cfg.num_layers}
+        got = lm_launches()
         if got != want:
             raise AssertionError(f"{arch}: launches {got}, expected {want} "
                                  f"(one per layer in one prefill)")
-        launches[kernel] = got[kernel]
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
         ids = out["ids"]
         if ids.shape != (batch, GEN) or ids.min() < 0 or \
                 ids.max() >= cfg.padded_vocab:
@@ -842,7 +946,7 @@ def phase_serve() -> dict:
               "gen": GEN, "prefill_seconds": out["prefill_seconds"],
               "decode_seconds": out["decode_seconds"],
               "decode_tokens_per_s": out["decode_tokens_per_s"],
-              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "peak_memory_bytes": out["peak_memory_bytes"],
               "wall_seconds_with_init": wall, "launches": got,
               "ids_sample": ids[0, :8].tolist()})
         del out
@@ -851,46 +955,58 @@ def phase_serve() -> dict:
     return launches
 
 
+SERVE_AGREE = (("yi-6b", REDUCED_PROMPT, 1e-4),
+               ("mamba2-370m", REDUCED_PROMPT, 1e-3),
+               # 48: S > window (32) but not a multiple: full causal, flash
+               ("recurrentgemma-9b", REDUCED_PROMPT, 1e-4),
+               # 64: a multiple of the window: plain banded attention
+               ("recurrentgemma-9b", 64, 1e-4))
+
+
 def phase_serve_agree() -> None:
-    """The reduced yi-6b and mamba2-370m in f32 through ``serve_lm`` on the
-    card (the kernels) and on the CPU (their plain versions, which the CPU
-    tests hold to the JAX reference), with the same weights: logits within
-    the model tolerances, equal greedy ids."""
+    """The reduced yi-6b, mamba2-370m and recurrentgemma-9b (at prompts 48
+    and 64) in f32 through ``serve_lm`` on the card (the kernels) and on the
+    CPU (their plain versions, which the CPU tests hold to the JAX
+    reference), with the same weights: logits within the model tolerances,
+    equal greedy ids, and on the card exactly the expected launches (none
+    on the CPU)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models import LM
 
     t_phase = time.perf_counter()
-    errs = {}
-    for arch, tol in (("yi-6b", 1e-4), ("mamba2-370m", 1e-3)):
+    errs, ran = {}, {}
+    for arch, prompt, tol in SERVE_AGREE:
         cfg = get_config(arch, reduced=True)
         params = LM(cfg, device="cpu").init(SEED, torch.float32)
         out = {}
         for dev in ("cuda", "cpu"):
-            before = fk.LAUNCHES["flash_attention"] + sk.LAUNCHES["ssd_scan"]
-            out[dev] = serve_lm(cfg, batch=REDUCED_BATCH,
-                                prompt_len=REDUCED_PROMPT, gen=8, seed=SEED,
-                                device=dev, params=params)
-            ran = fk.LAUNCHES["flash_attention"] + sk.LAUNCHES["ssd_scan"] - before
-            if ran != (cfg.num_layers if dev == "cuda" else 0):
-                raise AssertionError(f"{arch} on {dev}: {ran} kernel launches")
+            before = lm_launches()
+            out[dev] = serve_lm(cfg, batch=REDUCED_BATCH, prompt_len=prompt,
+                                gen=8, seed=SEED, device=dev, params=params)
+            got = {k: n - before[k] for k, n in lm_launches().items()}
+            want = expected_launches(cfg, prompt) if dev == "cuda" else \
+                {k: 0 for k in got}
+            if got != want:
+                raise AssertionError(f"{arch} {prompt} on {dev}: launches "
+                                     f"{got}, expected {want}")
         a, b = out["cuda"], out["cpu"]
         for key in ("prefill_logits", "last_logits"):
             np.testing.assert_allclose(a[key], b[key], atol=tol, rtol=tol,
-                                       err_msg=f"{arch} {key}")
+                                       err_msg=f"{arch} {prompt} {key}")
         if not np.array_equal(a["ids"], b["ids"]):
-            raise AssertionError(f"{arch}: greedy ids differ between the "
-                                 f"card and the CPU")
-        errs[arch] = max(float(np.abs(a[k] - b[k]).max())
-                         for k in ("prefill_logits", "last_logits"))
+            raise AssertionError(f"{arch} {prompt}: greedy ids differ between "
+                                 f"the card and the CPU")
+        errs[f"{arch}/{prompt}"] = max(float(np.abs(a[k] - b[k]).max())
+                                       for k in ("prefill_logits", "last_logits"))
+        ran[f"{arch}/{prompt}"] = {k: n for k, n in
+                                   expected_launches(cfg, prompt).items() if n}
     emit({"phase": "serve_agree", "dtype": "float32",
-          "tolerance": {"yi-6b": 1e-4, "mamba2-370m": 1e-3},
-          "max_abs_logit_err": errs, "ids_equal": True,
+          "tolerance": {f"{a}/{p}": t for a, p, t in SERVE_AGREE},
+          "max_abs_logit_err": errs, "card_launches": ran, "ids_equal": True,
           "seconds": time.perf_counter() - t_phase})
 
 

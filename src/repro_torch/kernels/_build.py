@@ -52,6 +52,10 @@ SIGNATURES = {
         "ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
         "ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
     },
+    "rg_lru": {
+        "rglru_scan_f32": (_P, _P, _P, _P, _N, _N, _N, _P),
+        "rglru_scan_bf16": (_P, _P, _P, _P, _N, _N, _N, _P),
+    },
 }
 
 _LOCK = threading.Lock()

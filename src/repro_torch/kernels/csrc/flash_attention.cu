@@ -20,7 +20,9 @@
 // 64-row K and V tile are converted to f32 in shared memory, rows padded by one float so the
 // column walks hit 32 distinct banks.  Each thread owns a 4x4 micro-tile of the 64x64 score
 // tile (rows ty+16i, columns tx+16j) and 4 x hd/16 entries of the output accumulator, so every
-// shared-memory load feeds several FMAs.  The 16 threads that share a row are one half-warp:
+// shared-memory load feeds several FMAs.  At hd 256 (recurrentgemma's MQA heads) the tiles take
+// (64 + 2*64)*257 + 64*65 floats, 214,016 bytes, under the 232,448 a block may hold, and the
+// accumulator is 64 floats a thread.  The 16 threads that share a row are one half-warp:
 // row max and row sum are __shfl_xor_sync trees inside it.  P goes through shared memory to
 // the P*V product.  All arithmetic is f32 on the CUDA cores, so the kernel sits far below the
 // tensor-core bound that PERF.md states for it.
@@ -215,6 +217,7 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B, lo
     case 32: return launch_hd<T, 32>(q, k, v, o, B, H, KV, S, causal, st);
     case 64: return launch_hd<T, 64>(q, k, v, o, B, H, KV, S, causal, st);
     case 128: return launch_hd<T, 128>(q, k, v, o, B, H, KV, S, causal, st);
+    case 256: return launch_hd<T, 256>(q, k, v, o, B, H, KV, S, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -222,7 +225,7 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B, lo
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  q/o: (B,H,S,hd); k/v: (B,KV,S,hd); one dtype for all
-// four, contiguous (the wrapper checks).  hd in {16, 32, 64, 128}.  Returns a cudaError_t.
+// four, contiguous (the wrapper checks).  hd in {16, 32, 64, 128, 256}.  Returns a cudaError_t.
 extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o, long long B,

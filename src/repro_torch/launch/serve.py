@@ -4,11 +4,12 @@ tokens (the LM half of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \\
         --batch 4 --prompt-len 48 --gen 16 [--device cuda|cpu]
 
-``--device cuda`` (the default) runs prefill attention and the SSD scan
-through the hand-written CUDA kernels and raises without a card;
-``--device cpu`` runs their plain PyTorch versions.  The dense and ssm
-families are ported; the others, and the reference's notebook-fleet and
-gateway modes, are rejected with an error that names them.
+``--device cuda`` (the default) runs prefill attention, the SSD scan and
+the RG-LRU scan through the hand-written CUDA kernels and raises without a
+card; ``--device cpu`` runs their plain PyTorch versions.  The dense, ssm
+and hybrid families are ported (e.g. ``--arch recurrentgemma-9b``); the
+others (moe, encdec, vlm), and the reference's notebook-fleet and gateway
+modes, are rejected with an error that names them.
 """
 from __future__ import annotations
 
@@ -43,8 +44,10 @@ def serve_lm(cfg, *, batch: int = 4, prompt_len: int = 48, gen: int = 16,
     arrays or CPU tensors (see :meth:`LM.load_reference`).
 
     Returns ``ids`` (batch, gen), the prefill logits and the last decode
-    step's logits (f32 numpy), and the wall times of prefill and decode
-    (each ends in a device synchronise)."""
+    step's logits (f32 numpy), the wall times of prefill and decode (each
+    ends in a device synchronise) and, on a card, the peak device memory
+    of prefill and decode (the weights, the cache and the activations; the
+    weight init's scratch is not counted)."""
     dev = resolve_device(device)
     total = prompt_len + gen
     lm = LM(cfg, max_seq=total, device=dev)
@@ -56,6 +59,8 @@ def serve_lm(cfg, *, batch: int = 4, prompt_len: int = 48, gen: int = 16,
     else:
         lm.load_reference(params)
     _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
 
     t0 = time.perf_counter()
     logits, cache = lm.prefill(tokens, cache_len=total)
@@ -79,6 +84,8 @@ def serve_lm(cfg, *, batch: int = 4, prompt_len: int = 48, gen: int = 16,
             "last_logits": logits.float().cpu().numpy(),
             "prefill_seconds": t_prefill, "decode_seconds": t_decode,
             "decode_tokens_per_s": gen * batch / t_decode if gen else 0.0,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
             "device": str(dev)}
 
 

@@ -5,9 +5,11 @@ The reference's model calls its XLA ``full_causal_attention`` for prefill
 and keeps the Pallas flash kernel as the TPU's route; the port puts its
 CUDA flash kernel in that place (:func:`prefill_attention`).  Decode
 attention and the cache write stay plain PyTorch, as in the reference.
-All softmax arithmetic is f32; masks use -1e30 (never -inf).  Banded and
-window attention (the hybrid family), cross attention (encdec) and the
-per-head q/k norm (qwen3, the moe family) are not ported yet.
+All softmax arithmetic is f32; masks use -1e30 (never -inf).  The hybrid
+family's banded local attention (prefill) and ring-buffer window decode
+are plain PyTorch, as the reference computes them in XLA outside any
+Pallas kernel.  Cross attention (encdec) and the per-head q/k norm (qwen3,
+the moe family) are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,6 +54,37 @@ def prefill_attention(q, k_heads, v_heads):
     return o.transpose(1, 2)
 
 
+def banded_local_attention(q, k, v, *, window: int):
+    """Sliding-window causal attention, O(S*W): block i of ``window``
+    queries attends key blocks {i-1, i}, each query the last ``window``
+    keys up to itself.  q (B,S,H,hd); k/v (B,S,KV,hd); S % window == 0
+    -> (B,S,H,hd).  Plain PyTorch (recurrentgemma's local attention)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    W = window
+    if S % W:
+        raise ValueError(f"S={S} is not a multiple of the window {W}")
+    nb = S // W
+    qg = q.reshape(B, nb, W, KV, H // KV, hd)
+    kb = k.reshape(B, nb, W, KV, hd)
+    vb = v.reshape(B, nb, W, KV, hd)
+    zpad = torch.zeros_like(kb[:, :1])
+    # each block's keys after its previous block's: (B,nb,2W,KV,hd)
+    kcat = torch.cat([torch.cat([zpad, kb[:, :-1]], 1), kb], dim=2)
+    vcat = torch.cat([torch.cat([zpad, vb[:, :-1]], 1), vb], dim=2)
+    s = torch.einsum("bnqkgh,bnskh->bnkgqs", qg, kcat).float() * (hd ** -0.5)
+    iq = torch.arange(W, device=q.device)[:, None]
+    j = torch.arange(2 * W, device=q.device)[None, :]
+    diff = (W + iq) - j
+    win = (diff >= 0) & (diff < W)                      # causal window
+    blk = torch.arange(nb, device=q.device)[:, None, None]
+    valid = win[None] & ((blk > 0) | (j[None] >= W))    # block 0 has no prev
+    s = torch.where(valid[None, :, None, None], s, torch.full_like(s, NEG))
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bnkgqs,bnskh->bnqkgh", w, vcat)
+    return out.reshape(B, S, H, hd)
+
+
 # ----------------------------------------------------------------------
 # Decode (one token, cache): plain PyTorch
 # ----------------------------------------------------------------------
@@ -83,3 +116,27 @@ def cache_write_plain(k_cache, v_cache, new_k, new_v, pos):
     k_cache[rows, :, pos.long()] = new_k[:, 0]
     v_cache[rows, :, pos.long()] = new_v[:, 0]
     return k_cache, v_cache
+
+
+def decode_attention_window(q, k_cache, v_cache, pos, *, window: int):
+    """Ring-buffer sliding-window decode (recurrentgemma's local attention).
+    Caches (B,KV,Wc,hd); the slot of token p is p % Wc; valid keys are
+    the last ``window`` positions <= pos."""
+    B, _, H, hd = q.shape
+    KV, Wc = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,bksh->bkgs", qg, k_cache).float() * (hd ** -0.5)
+    slot = torch.arange(Wc, device=q.device)[None, :]
+    p = pos[:, None].long()
+    # global position stored in slot j: the largest q <= pos with q % Wc == j
+    gpos = p - torch.remainder(p - slot, Wc)
+    valid = (gpos >= 0) & (gpos >= p - (window - 1))
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG))
+    w = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    return torch.einsum("bkgs,bksh->bkgh", w, v_cache).reshape(B, 1, H, hd)
+
+
+def cache_write_window(k_cache, v_cache, new_k, new_v, pos):
+    """Write the new entries into their ring slot ``pos % Wc``, in place."""
+    return cache_write_plain(k_cache, v_cache, new_k, new_v,
+                             torch.remainder(pos, k_cache.shape[2]))

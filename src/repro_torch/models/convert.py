@@ -2,9 +2,10 @@
 
 ``LM.init`` in the JAX package returns a nested dict of arrays; handed over
 as numpy arrays (``np.asarray`` of each leaf), the tree fills the port's
-parameters leaf for leaf, because the port keeps the reference's layouts
-and its stacked ``layers`` axis: nothing is transposed or unstacked, only
-dtypes are mapped.  A jax bf16 leaf arrives as an ``ml_dtypes.bfloat16``
+parameters leaf for leaf, because the port keeps the reference's layouts,
+its stacked ``layers`` axis and the hybrid family's ``groups`` (stacked)
+and ``tail`` (unstacked) subtrees: nothing is transposed or unstacked,
+only dtypes are mapped.  A jax bf16 leaf arrives as an ``ml_dtypes.bfloat16``
 numpy array; its bits are taken through a 16-bit integer view, so this
 module needs no ``ml_dtypes``.
 """

@@ -7,8 +7,8 @@ axes, init rule), in the reference's layouts (``wq`` (d,H,hd), ``conv_w``
 parameter tree carries across leaf for leaf.  :func:`init_params`
 materializes a spec from an explicit ``torch.Generator`` by the
 reference's rules: truncated normal at +-2 sigma with sigma = 1/sqrt(fan_in)
-(or the leaf's scale), and the ``zeros``, ``ones``, ``dt_bias`` and
-``a_log`` rules.  The two packages draw different numbers from one seed;
+(or the leaf's scale), and the ``zeros``, ``ones``, ``dt_bias``,
+``a_log`` and ``lambda`` rules.  The two packages draw different numbers from one seed;
 tests carry the reference's own weights across (:mod:`.convert`).
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ class P:
     """Declarative parameter leaf."""
     shape: tuple
     axes: tuple                 # logical axis names, len == len(shape)
-    init: str = "normal"        # normal | zeros | ones | dt_bias | a_log
+    init: str = "normal"        # normal | zeros | ones | dt_bias | a_log | lambda
     scale: float | None = None  # stddev override for normal init
 
     def __post_init__(self):
@@ -86,6 +86,9 @@ def materialize(p: P, gen: torch.Generator, dtype, device) -> torch.Tensor:
         return torch.log(torch.expm1(u)).to(dtype)        # inverse softplus
     if p.init == "a_log":     # mamba2 A in [1, 16]
         return torch.log(_uniform(p.shape, gen, device, 1.0, 16.0)).to(dtype)
+    if p.init == "lambda":    # RG-LRU Lambda: a = sigmoid(L)^8 in [0.9, 0.999]
+        r = _uniform(p.shape, gen, device, 0.9, 0.999) ** (1.0 / 8.0)
+        return torch.log(r / (1 - r)).to(dtype)
     if p.init != "normal":
         raise ValueError(f"init rule {p.init!r} is not ported")
     fan_in = p.shape[0] if len(p.shape) == 1 else math.prod(p.shape[:-1])
@@ -166,12 +169,12 @@ def apply_rope(x, positions, *, rope_pct: float = 1.0,
 
 
 # ----------------------------------------------------------------------
-# Depthwise causal conv1d (mamba2)
+# Depthwise causal conv1d (mamba2 / RG-LRU frontends)
 # ----------------------------------------------------------------------
 
-def causal_conv1d(x, w, state=None):
-    """x: (B, S, C); w: (C, W) depthwise causal filter, then SiLU (the
-    mamba2 convention).
+def causal_conv1d(x, w, state=None, activation: bool = True):
+    """x: (B, S, C); w: (C, W) depthwise causal filter, then SiLU when
+    ``activation`` (the mamba2 convention; RG-LRU convs are linear).
 
     Returns (y, new_state); state (B, W-1, C) carries the last W-1 inputs
     for decode (zeros when None)."""
@@ -186,7 +189,7 @@ def causal_conv1d(x, w, state=None):
     for k in range(W):
         y = y + xp[:, k:k + S, :] * w[:, k].to(x.dtype)
     new_state = xp[:, S:, :]
-    return silu(y), new_state
+    return (silu(y) if activation else y), new_state
 
 
 # ----------------------------------------------------------------------

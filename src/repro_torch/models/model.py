@@ -1,5 +1,6 @@
 """Model facade (port of ``repro/models/model.py``) for the families this
-slice carries: ``dense`` (attention + SwiGLU) and ``ssm`` (mamba2).
+slice carries: ``dense`` (attention + SwiGLU), ``ssm`` (mamba2) and
+``hybrid`` (recurrentgemma: RG-LRU and local attention).
 
     lm = LM(cfg, max_seq=4096, device="cuda")
     lm.init(seed)                        # or lm.load_reference(numpy tree)
@@ -8,9 +9,9 @@ slice carries: ``dense`` (attention + SwiGLU) and ``ssm`` (mamba2).
 
 The parameters live on the LM (``lm.params``, the reference's tree of
 stacked leaves) and are inference-only: no autograd, no loss yet (LM
-training is a later slice).  Prefill attention and the forward SSD scan
-go through the hand-written CUDA kernels on a card, their plain versions
-on the CPU.
+training is a later slice).  Prefill attention, the forward SSD scan and
+the RG-LRU scan go through the hand-written CUDA kernels on a card, their
+plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -27,8 +28,6 @@ from repro_torch.models.layers import (
 
 # families whose modules are not ported yet, and the ROADMAP item for each
 NOT_PORTED = {
-    "hybrid": "ROADMAP A9/B7: griffin, banded local attention, window "
-              "decode and the RG-LRU kernel (recurrentgemma-9b)",
     "moe": "ROADMAP A9: models/moe.py",
     "encdec": "ROADMAP A9: models/encdec.py",
     "vlm": "ROADMAP A9: the vlm frontend",
@@ -111,13 +110,16 @@ class LM:
 
     def decode_step(self, cache, token):
         """One new token (B,1); returns (logits (B,V), cache), the cache
-        updated in place.  Raises ``IndexError`` when a kv cache has no
-        slot left (the reference clamps and overwrites the last slot); the
-        check reads the cache's host-side count, not the device's ``pos``."""
+        updated in place.  Raises ``IndexError`` when a full kv cache has
+        no slot left (the reference clamps and overwrites the last slot);
+        the check reads the cache's host-side count, not the device's
+        ``pos``.  A window cache (the hybrid family's) is a ring and never
+        runs out."""
         filled = cache["filled"]
-        if "k" in cache["stack"] and filled >= cache["stack"]["k"].shape[3]:
+        kv = cache.get("stack", {}).get("k")
+        if kv is not None and filled >= kv.shape[3]:
             raise IndexError(f"decode step writes slot {filled}, outside a "
-                             f"cache of {cache['stack']['k'].shape[3]} slots")
+                             f"cache of {kv.shape[3]} slots")
         token = torch.as_tensor(token, device=self.device).long()
         pos = cache["pos"]
         x = embed_lookup(self.params["embed"], token)

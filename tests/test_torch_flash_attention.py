@@ -40,6 +40,8 @@ def _f32(a):
     (1, 6, 6, 192, 32, True),      # non-pow2 heads/seq
     (1, 2, 2, 128, 32, False),     # non-causal
     (4, 4, 2, 48, 16, True),       # the reduced yi-6b's prefill: S=48, hd=16
+    (4, 4, 1, 48, 16, True),       # the reduced recurrentgemma's: MQA
+    (1, 4, 1, 128, 256, True),     # recurrentgemma's head dim, 256
 ])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_plain_version_matches_the_reference(B, H, KV, S, hd, causal, dtype):

@@ -1,17 +1,33 @@
-"""The port's LM (dense and ssm families) against the JAX reference's, on
-the CPU, with the reference's own weights carried across.
+"""The port's LM (dense, ssm and hybrid families) against the JAX
+reference's, on the CPU, with the reference's own weights carried across.
 
 Weights come from the reference's ``LM.init(PRNGKey(0), dtype)`` as numpy
 arrays; both models see one 48-token prompt (not a multiple of the reduced
 mamba2's SSD chunk of 32, so the pad path runs), then four greedy decode
-steps.  Tolerances (atol = rtol):
-- f32 dense 1e-4; f32 mamba2 1e-3, because the SSD sums are taken in
-  another order (chunk by chunk, as the kernel does);
-- bf16 5e-2 for both families: activations round to bf16 at other places
+steps.  The reduced recurrentgemma (window 32; 3 layers, and 5 with a
+tail) sees prompts of 48 (the reference's full causal attention for S >
+window when S is not a multiple of it), 64 (banded attention) and 16
+(below the window), and decodes until four steps past the window's end;
+the whole ``groups``/``tail`` cache is compared after prefill and after
+the last step.  Tolerances (atol = rtol):
+- f32 dense and recurrentgemma 1e-4 (the RG-LRU scan sums in another
+  order than the reference's associative scan; 4e-6 measured); f32
+  mamba2 1e-3, because the SSD sums are taken in another order (chunk by
+  chunk, as the kernel does);
+- bf16 5e-2 for all families: activations round to bf16 at other places
   (the port's attention keeps f32 scores where the reference's XLA
-  attention rounds them to bf16); the largest difference measured on
-  these inputs is 2.7e-2 (cache entries), 1.4e-2 on logits.
+  attention rounds them to bf16; torch's bf16 sigmoid rounds once where
+  XLA's rounds each step); the largest difference measured on these inputs
+  is 2.7e-2 (cache entries), 1.4e-2 on logits for dense and mamba2, 4.2e-2
+  on the cache and 2.5e-2 on logits for the 3-layer recurrentgemma.  The
+  5-layer recurrentgemma's cache is held to 1e-1: its deepest entries,
+  the last tail layer's conv state (the projection of the residual
+  stream after four layers), carry those one-ulp differences through
+  four layers, 7.9e-2 measured on 2 of 384 entries; its logits stay at
+  5e-2 (2.8e-2 measured).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -31,6 +47,8 @@ from repro_torch.models import attention, layers  # noqa: E402
 PROMPT, CACHE, STEPS = 48, 56, 4
 F32_TOL = {"yi-6b": 1e-4, "demo-100m": 1e-4, "mamba2-370m": 1e-3}
 BF16_TOL = 5e-2
+HYBRID = "recurrentgemma-9b"
+HYBRID_BF16_CACHE_TOL = {3: 5e-2, 5: 1e-1}
 
 
 def _f32(a):
@@ -39,40 +57,63 @@ def _f32(a):
     return np.asarray(a, np.float32)
 
 
-def _pair(arch, dtype):
-    ref_lm = RefLM(ref_config(arch, reduced=True), max_seq=CACHE)
+def _pair(arch, dtype, num_layers=None, cache_len=CACHE):
+    rcfg, cfg = ref_config(arch, reduced=True), get_config(arch, reduced=True)
+    if num_layers is not None:
+        rcfg = dataclasses.replace(rcfg, num_layers=num_layers)
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    ref_lm = RefLM(rcfg, max_seq=cache_len)
     params = ref_lm.init(jax.random.PRNGKey(0), dtype)
-    lm = LM(get_config(arch, reduced=True), max_seq=CACHE, device="cpu")
+    lm = LM(cfg, max_seq=cache_len, device="cpu")
     lm.load_reference(jax.tree_util.tree_map(np.asarray, params))
     return ref_lm, params, lm
 
 
-def _run(arch, dtype, tol, check_ids):
-    ref_lm, params, lm = _pair(arch, dtype)
+def _cache_close(got, want, tol, path="cache"):
+    """Walk the reference's cache tree (``stack``, or ``groups`` and
+    ``tail``) and hold every leaf of the port's against it."""
+    if isinstance(want, dict):
+        mine = sorted(k for k in got if k != "filled")
+        assert mine == sorted(want), (path, mine, sorted(want))
+        for k in want:
+            if k != "pos":
+                _cache_close(got[k], want[k], tol, f"{path}[{k!r}]")
+        return
+    assert tuple(got.shape) == want.shape, path
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol,
+                               err_msg=path)
+
+
+def _run(arch, dtype, tol, check_ids, *, prompt=PROMPT, steps=STEPS,
+         num_layers=None, cache_tol=None):
+    cache_len = CACHE if prompt + steps <= CACHE else prompt + steps
+    ref_lm, params, lm = _pair(arch, dtype, num_layers, cache_len)
+    cache_tol = cache_tol or tol
     rng = np.random.default_rng(3)
-    toks = rng.integers(0, lm.cfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    toks = rng.integers(0, lm.cfg.vocab_size, (2, prompt)).astype(np.int32)
     want, rcache = ref_lm.prefill(params, {"tokens": jnp.asarray(toks)},
-                                  cache_len=CACHE)
-    got, cache = lm.prefill(torch.from_numpy(toks), cache_len=CACHE)
+                                  cache_len=cache_len)
+    got, cache = lm.prefill(torch.from_numpy(toks), cache_len=cache_len)
     assert tuple(got.shape) == (2, lm.cfg.padded_vocab)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
-    assert sorted(cache["stack"]) == sorted(rcache["stack"])
-    for k, v in rcache["stack"].items():
-        assert tuple(cache["stack"][k].shape) == v.shape, k
-        np.testing.assert_allclose(_f32(cache["stack"][k]), _f32(v),
-                                   atol=tol, rtol=tol, err_msg=k)
+    _cache_close(cache, rcache, cache_tol)
     assert cache["pos"].tolist() == np.asarray(rcache["pos"]).tolist()
+    # the hybrid decodes many steps: its reference step is compiled once
+    decode = jax.jit(ref_lm.decode_step) if lm.cfg.family == "hybrid" \
+        else ref_lm.decode_step
     rtok = jnp.argmax(want, axis=-1)[:, None].astype(jnp.int32)
     tok = got.argmax(dim=-1)[:, None]
-    for _ in range(STEPS):
+    for _ in range(steps):
         if check_ids:
             assert tok[:, 0].tolist() == np.asarray(rtok)[:, 0].tolist()
-        want, rcache = ref_lm.decode_step(params, rcache, {"token": rtok})
+        want, rcache = decode(params, rcache, {"token": rtok})
         got, cache = lm.decode_step(cache, tok if check_ids
                                     else torch.from_numpy(np.array(rtok)))
         np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
         rtok = jnp.argmax(want, axis=-1)[:, None].astype(jnp.int32)
         tok = got.argmax(dim=-1)[:, None]
+    _cache_close(cache, rcache, cache_tol)
+    assert cache["pos"].tolist() == np.asarray(rcache["pos"]).tolist()
 
 
 @pytest.mark.parametrize("arch", sorted(F32_TOL))
@@ -84,6 +125,58 @@ def test_prefill_and_decode_match_the_reference_f32(arch):
 def test_prefill_and_decode_match_the_reference_bf16(arch):
     """bf16 weights: the port decodes the reference's tokens (no id check)."""
     _run(arch, jnp.bfloat16, BF16_TOL, check_ids=False)
+
+
+def _hybrid_steps(prompt):
+    """Decode until four steps past the end of the reduced window (32)."""
+    window = get_config(HYBRID, reduced=True).local_window
+    return max(STEPS, window - prompt + STEPS)
+
+
+@pytest.mark.parametrize("prompt", [48, 64, 16])
+@pytest.mark.parametrize("num_layers", [3, 5])
+def test_recurrentgemma_matches_the_reference_f32(prompt, num_layers):
+    """48: S > window but not a multiple of it, so the reference (and the
+    port) run full causal attention (flash on the card); 64: banded
+    attention; 16: below the window, decoding past its end into the ring.
+    5 layers: a group of (rec, rec, attn) and a tail of two rec layers."""
+    _run(HYBRID, jnp.float32, 1e-4, check_ids=True, prompt=prompt,
+         steps=_hybrid_steps(prompt), num_layers=num_layers)
+
+
+@pytest.mark.parametrize("prompt", [48, 64, 16])
+@pytest.mark.parametrize("num_layers", [3, 5])
+def test_recurrentgemma_matches_the_reference_bf16(prompt, num_layers):
+    """bf16 weights: the port decodes the reference's tokens (no id check)."""
+    _run(HYBRID, jnp.bfloat16, BF16_TOL, check_ids=False, prompt=prompt,
+         steps=_hybrid_steps(prompt), num_layers=num_layers,
+         cache_tol=HYBRID_BF16_CACHE_TOL[num_layers])
+
+
+def test_recurrentgemma_cache_layout_and_the_ring_never_runs_out():
+    """groups stacked on a leading axis, the tail unstacked; window caches
+    of min(window, cache_len) slots, which decode wraps without end (the
+    prefill rolls the ring: the f32 tests above hold its layout against
+    the reference's at prompts 48 and 64)."""
+    cfg = dataclasses.replace(get_config(HYBRID, reduced=True), num_layers=5)
+    lm = LM(cfg, device="cpu")
+    lm.init(0, torch.float32)
+    cache = lm.init_cache(2, 20)
+    assert sorted(cache) == ["filled", "groups", "pos", "tail"]
+    assert sorted(cache["groups"]) == ["b0_rec", "b1_rec", "b2_attn"]
+    assert sorted(cache["tail"]) == ["t0_rec", "t1_rec"]
+    assert tuple(cache["groups"]["b2_attn"]["k"].shape) == (1, 2, 1, 20, 16)
+    assert tuple(cache["groups"]["b0_rec"]["lru"].shape) == (1, 2, 64)
+    assert tuple(cache["tail"]["t1_rec"]["conv"].shape) == (2, 3, 64)
+    assert tuple(lm.init_cache(2, 100)["groups"]["b2_attn"]["v"].shape) == \
+        (1, 2, 1, 32, 16)
+    toks = torch.randint(0, cfg.vocab_size, (2, 45),
+                         generator=torch.Generator().manual_seed(0))
+    _, cache = lm.prefill(toks, cache_len=50)
+    for _ in range(40):                  # past cache_len: the ring wraps
+        logits, cache = lm.decode_step(cache, toks[:, :1])
+    assert cache["filled"] == 85 and cache["pos"].tolist() == [85, 85]
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "mamba2-370m"])
@@ -205,7 +298,7 @@ def test_configs_equal_the_reference(arch):
 @pytest.mark.parametrize("arch", sorted(ASSIGNED_ARCHS))
 def test_unported_families_name_their_roadmap_item(arch):
     cfg = get_config(arch, reduced=True)
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "ssm", "hybrid"):
         assert LM(cfg, device="cpu").cfg is cfg
         return
     with pytest.raises(NotImplementedError, match=r"ROADMAP A9"):

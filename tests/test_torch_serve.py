@@ -37,7 +37,7 @@ def _reference_ids(arch):
             jax.tree_util.tree_map(np.asarray, params), batch["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-370m", "recurrentgemma-9b"])
 def test_serve_lm_gives_the_reference_ids(arch):
     want, params, prompt = _reference_ids(arch)
     out = serve.serve_lm(get_config(arch, reduced=True), batch=BATCH,
@@ -48,7 +48,7 @@ def test_serve_lm_gives_the_reference_ids(arch):
     assert out["device"] == "cpu" and out["prefill_seconds"] > 0
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-370m", "recurrentgemma-9b"])
 def test_cli_serves_on_the_cpu(arch, capsys):
     serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                 "--batch", "2", "--gen", "4"])
@@ -69,8 +69,8 @@ def test_cli_names_the_options_not_ported_yet(flag, capsys):
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("qwen2-moe-a2.7b", "moe"), ("recurrentgemma-9b", "hybrid"),
-    ("whisper-tiny", "encdec"), ("internvl2-2b", "vlm")])
+    ("qwen2-moe-a2.7b", "moe"), ("whisper-tiny", "encdec"),
+    ("internvl2-2b", "vlm")])
 def test_cli_names_the_families_not_ported_yet(arch, family, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", arch, "--reduced", "--device", "cpu"])

@@ -163,9 +163,11 @@ sys.modules["jax"] = None          # any import of jax now fails
 sys.modules["ml_dtypes"] = None
 import repro_torch.configs
 import repro_torch.models
+import repro_torch.models.griffin
 from repro_torch.launch.serve import serve_lm
 shapes = []
-for arch, prompt in (("yi-6b", 12), ("mamba2-370m", 40)):
+for arch, prompt in (("yi-6b", 12), ("mamba2-370m", 40),
+                     ("recurrentgemma-9b", 40)):
     out = serve_lm(repro_torch.configs.get_config(arch, reduced=True),
                    batch=2, prompt_len=prompt, gen=3, device="cpu")
     shapes.append(out["ids"].shape)
@@ -182,7 +184,7 @@ def test_port_serves_a_reduced_lm_without_jax():
                          env={**env, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     shapes, loaded = eval(out.stdout.strip())  # noqa: S307
-    assert shapes == [(2, 3), (2, 3)]
+    assert shapes == [(2, 3), (2, 3), (2, 3)]
     assert loaded == []
 
 
