@@ -17,8 +17,11 @@ Phases, each printing one JSON line:
 4. lm_kernels: flash_attention, ssd_scan and rglru_scan against their plain
             versions (TF32 off for the f32 products), at the serve path's
             shapes (flash at yi-6b's hd 128 and recurrentgemma's hd 256), the
-            CPU tests' shapes and ragged ones, f32 within 2e-5 (flash), 5e-4
-            (SSD) and 1e-5 (RG-LRU), bf16 outputs within about two bf16 ulps
+            CPU tests' shapes, ragged ones and the tensor-core routes' edges
+            (S under one tile, full attention, H/KV 2 and 16; one chunk,
+            Q = 100, H not a multiple of the 8-head block), f32 within 2e-5
+            (flash), 5e-4 (SSD) and 1e-5 (RG-LRU), bf16 outputs within about
+            two bf16 ulps
             (flash atol = rtol = 8e-3; SSD and RG-LRU atol 1e-3, rtol 1.6e-2;
             the plain versions computing in f32 from the bf16 values, as the
             kernels do; the SSD state is f32 and held at 5e-4; flash's error
@@ -26,7 +29,9 @@ Phases, each printing one JSON line:
             reported beside it); the SSD kernel refuses tiles above a
             block's shared memory; times beside the plain version, the bound
             and, for flash, PyTorch's scaled_dot_product_attention as a
-            yardstick the port never calls;
+            yardstick the port never calls; flash and SSD are timed on their
+            bf16 (tensor-core) route and on the f32 (CUDA-core) route at the
+            same shape, with each launch's device time from torch.profiler;
 5. session: the state-migration path through
             ``repro_torch.launch.notebook.run_notebook`` on the card, two
             sessions under the paper's single-cell policy (the first runs
@@ -186,6 +191,32 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_kernels_ms(fn, reps: int = 10) -> dict:
+    """Device time per call of each CUDA kernel that ``fn`` launches, from a
+    ``torch.profiler`` trace of ``reps`` calls after one warm-up (empty if
+    the profiler records no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():   # the profiler's note on clearing events
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us:
+            name = ev.key.replace("(anonymous namespace)::", "").removeprefix(
+                "void ").split("(")[0].split("<")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
 def bound(nbytes: int, ops: int,
           ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -215,7 +246,7 @@ def phase_build() -> None:
     for name in _build.SIGNATURES:
         _build.load(name)
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "entry function" in ln]
              for n, log in reports.items()}
     emit({"phase": "build", "seconds": seconds, "built": sorted(reports),
           "ptxas": ptxas})
@@ -456,7 +487,15 @@ def phase_lm_kernels() -> list[dict]:
                 (rg_fa, bf16, True), ((2, 16, 1, 1000, 256), f32, True),
                 ((1, 4, 1, 77, 256), f32, True), ((1, 4, 1, 77, 256), f32, False),
                 ((1, 16, 1, 1000, 256), bf16, True), (rg_red_fa, f32, True),
-                (rg_red_fa, bf16, True)]
+                (rg_red_fa, bf16, True),
+                # the tensor-core route's edges: S under one tile (1, 17), S
+                # ragged against the 64-row q and 64/32-row kv tiles, full
+                # (non-causal) attention, H/KV = 2 and 16, at hd 128 and 256
+                ((1, 4, 2, 1, 128), bf16, True), ((2, 4, 2, 17, 128), bf16, True),
+                ((1, 16, 1, 1, 256), bf16, True), ((2, 16, 1, 17, 256), bf16, True),
+                ((1, 4, 2, 200, 128), bf16, False), ((1, 4, 1, 200, 256), bf16, False),
+                ((1, 32, 2, 333, 128), bf16, True), ((1, 4, 2, 97, 256), bf16, True),
+                ((2, 4, 2, 77, 64), bf16, False), ((1, 2, 1, 130, 16), bf16, True)]
     def plain_f32(q, k, v, causal=True):
         """The plain version on the same values widened to f32 (exactly),
         rounded to the input dtype at the end: the kernel's arithmetic.
@@ -476,12 +515,18 @@ def phase_lm_kernels() -> list[dict]:
                         "causal" if causal else "full", err])
 
     def time_flash(B, H, KV, S, hd):
-        """Kernel, plain version and SDPA at one bf16 causal shape."""
+        """Kernel (bf16 route, and the f32 route on the same values), plain
+        version and SDPA at one causal shape."""
         q = randn((B, H, S, hd), bf16)
         k, v = randn((B, KV, S, hd), bf16), randn((B, KV, S, hd), bf16)
         vs_bf16_plain = float((fk.flash_attention_kernel(q, k, v).float()
                                - attention_ref(q, k, v).float()).abs().max())
         ms = time_ms(lambda: fk.flash_attention_kernel(q, k, v), REPS)
+        per_kernel = device_kernels_ms(lambda: fk.flash_attention_kernel(q, k, v))
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        ms_f32 = time_ms(lambda: fk.flash_attention_kernel(q32, k32, v32),
+                         max(2, REPS // 4))
+        del q32, k32, v32
         plain_ms = time_ms(lambda: attention_ref(q, k, v), max(2, REPS // 10))
         try:
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -497,7 +542,8 @@ def phase_lm_kernels() -> list[dict]:
         b, by = bound(2 * (2 * B * H * S * hd + 2 * B * KV * S * hd), flops,
                       BF16_OPS_PER_S)
         return {"max_abs_err_vs_bf16_plain": vs_bf16_plain,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                "ms": ms, "ms_f32": ms_f32, "device_kernels_ms": per_kernel,
+                "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                 "library_ms": library_ms, "library_call": library_call,
                 "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
                 "flops": flops}
@@ -536,6 +582,12 @@ def phase_lm_kernels() -> list[dict]:
     for shape in ((2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
                   (1, 64, 8, 32, 16, 64), (1, 300, 2, 32, 64, 100)):
         ssd_cases += [(shape, f32), (shape, bf16)]
+    # the tensor-core route's edges: one chunk (nc = 1), Q = 100 (ragged
+    # against the 64-row tiles), H not a multiple of its 8-head block, P 128
+    ssd_cases += [((2, 256, 4, 64, 128, 256), bf16),
+                  ((1, 500, 12, 64, 128, 100), bf16),
+                  ((1, 512, 10, 128, 64, 256), bf16),
+                  ((3, 200, 3, 16, 48, 100), bf16)]
     checked = []
     for (B, S, H, P, N, Q), dtype in ssd_cases:
         ins = ssd_inputs(B, S, H, P, N, Q, dtype)
@@ -554,10 +606,17 @@ def phase_lm_kernels() -> list[dict]:
     B, S, H, P, N, Q = main_ssd
     ins = ssd_inputs(B, S, H, P, N, Q, bf16)
     ms = time_ms(lambda: sk.ssd_scan_kernel(*ins), REPS)
+    ins32 = [t.float() for t in ins]      # the f32 route on the same values
+    ms_f32 = time_ms(lambda: sk.ssd_scan_kernel(*ins32), max(2, REPS // 4))
+    del ins32
+    per_kernel = device_kernels_ms(lambda: sk.ssd_scan_kernel(*ins))
     plain_ms = time_ms(lambda: ssd_scan_ref(*ins), max(2, REPS // 10))
+    # the function's work: C B^T once per (b, chunk) (the heads share one
+    # B/C group), then per (b, h, chunk) the decay mask, (G o L) xdt, the
+    # chunk state, the inter-chunk term and the state update
     nc, tri = S // Q, Q * (Q + 1) // 2
-    flops = B * H * nc * (tri * (2 * N + 1 + 2 * P) + 4 * Q * N * P + Q * P
-                          + Q * N + P * N)
+    flops = B * nc * tri * 2 * N + B * H * nc * (
+        tri * (1 + 2 * P) + 4 * Q * N * P + Q * P + Q * N + P * N)
     nbytes = (2 * 2 * B * S * H * P + 2 * 2 * B * S * N + 4 * B * H * S
               + 4 * B * H * P * N)
     b, by = bound(nbytes, flops, BF16_OPS_PER_S)
@@ -569,8 +628,9 @@ def phase_lm_kernels() -> list[dict]:
                                     errs["ssd_scan", "bfloat16"]),
                  "max_abs_err_f32": errs["ssd_scan", "float32"],
                  "max_abs_err_bf16": errs["ssd_scan", "bfloat16"],
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
-                 "bound_by": by, "library_ms": None,
+                 "ms": ms, "ms_f32": ms_f32, "device_kernels_ms": per_kernel,
+                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                 "library_ms": None,
                  "timed_shape": [B, S, H, P, N, Q, "bfloat16"],
                  "flops": flops, "checked_shapes": checked})
 

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles on its own into ``build/repro_torch_kernels/
 lib<name>-<source hash>.so`` at the root of the checkout, for ``sm_90a``, with
 a plain C interface (no PyTorch headers, so a build takes seconds).  The
-hash in the file name makes a changed source rebuild.  :func:`build_all`
+hash (of the source and the shared ``csrc/*.cuh`` headers) in the file name
+makes a changed source rebuild.  :func:`build_all`
 starts one ``nvcc`` per source, all together; :func:`load` builds what is
 missing and returns the loaded library with every entry point's
 ``argtypes`` set.  Nothing here runs at import time.
@@ -50,7 +51,7 @@ SIGNATURES = {
     },
     "ssd_scan": {
         "ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
-        "ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
+        "ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
     },
     "rg_lru": {
         "rglru_scan_f32": (_P, _P, _P, _P, _N, _N, _N, _P),
@@ -75,6 +76,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

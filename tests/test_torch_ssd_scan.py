@@ -127,3 +127,89 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(P, N, Q, match):
     args = tuple(torch.from_numpy(a) for a in _inputs(1, Q, 1, P, N))
     with pytest.raises(ValueError, match=match):
         ssd_scan_kernel(*arrange(*args, Q))
+
+
+# -- the CUDA bf16 route's rounding, emulated on the CPU ----------------------
+
+SMOKE_BF16_TOL = (1e-3, 1.6e-2)   # chip_smoke.py: y against the plain version
+SMOKE_STATE_TOL = 5e-4            # chip_smoke.py: the f32 state
+
+
+def _split(v):
+    """An f32 operand as the kernel feeds it to bf16 products: hi + lo."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def tensor_core_emulation(xdt, Bm, Cm, cums):
+    """The bf16 route of ``csrc/ssd_scan.cu`` in plain PyTorch, with its
+    rounding: every product f32-summed; C B^T from the exact bf16 values; the
+    f32 operands of the other three products (the decayed xdt of the chunk
+    states, G o L, and the state entering a chunk) split into bf16 hi + lo,
+    each half multiplied by the exact bf16 operand; the state passed in f32
+    from chunk to chunk; y rounded to xdt's dtype once."""
+    B, H, nc, Q, P = xdt.shape
+    x = xdt.float()
+    Bf, Cf = Bm.float()[:, None], Cm.float()[:, None]       # (B,1,nc,Q,N)
+    last = cums[..., -1:]                                   # (B,H,nc,1)
+    xd_hi, xd_lo = _split(x * torch.exp(last - cums)[..., None])
+    own = xd_hi.transpose(-1, -2) @ Bf + xd_lo.transpose(-1, -2) @ Bf
+    s = torch.zeros_like(own[:, :, 0])
+    entering = []
+    for c in range(nc):
+        entering.append(s)
+        s = torch.exp(last[:, :, c])[..., None] * s + own[:, :, c]
+    s_hi, s_lo = _split(torch.stack(entering, dim=2))       # (B,H,nc,P,N)
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()
+    L = torch.where(causal, torch.exp(cums[..., :, None] - cums[..., None, :]),
+                    torch.zeros(()))
+    m_hi, m_lo = _split((Cf @ Bf.transpose(-1, -2)) * L)
+    y = (Cf @ s_hi.transpose(-1, -2) + Cf @ s_lo.transpose(-1, -2)) \
+        * torch.exp(cums)[..., None]
+    y = y + (m_hi @ x + m_lo @ x)
+    return y.to(xdt.dtype), s
+
+
+@pytest.mark.parametrize("nc", [2, 3, 4])
+def test_tensor_core_rounding_matches_the_reference(nc):
+    """At mamba2's chunk shape (Q 256, P 64, N 128) the hi/lo split keeps
+    the emulated kernel within the file's bf16 tolerance of the Pallas
+    kernel (interpret mode) and ``ssd_ref``, and within chip_smoke.py's
+    tolerances of the port's plain version on the same bf16 values."""
+    B, H, P, N, Q = 1, 3, 64, 128, 256
+    _, _, tol = DTYPES["bfloat16"]
+    j, t = _both(_inputs(B, Q * nc, H, P, N, seed=5), jnp.bfloat16,
+                 torch.bfloat16)
+    ins = arrange(*t, chunk=Q)
+    y, s = tensor_core_emulation(*ins)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    y = y.permute(0, 2, 3, 1, 4).reshape(B, Q * nc, H, P)
+    y_k, s_k = ref_scan(*j, chunk=Q, interpret=True)
+    y_o, s_o = ssd_ref(*j, Q)
+    for want_y, want_s in ((y_k, s_k), (y_o, s_o)):
+        _close(y, want_y, tol)
+        _close(s, want_s, tol)
+    y_p, s_p = ssd_scan_ref(*ins)
+    atol, rtol = SMOKE_BF16_TOL
+    torch.testing.assert_close(y.float(), y_p.permute(0, 2, 3, 1, 4).reshape(
+        B, Q * nc, H, P).float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(s, s_p, atol=SMOKE_STATE_TOL,
+                               rtol=SMOKE_STATE_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", [
+    (2, 256, 4, 64, 128, 256),    # one chunk
+    (1, 500, 3, 64, 128, 100),    # Q ragged against the 64-row tiles
+    (3, 200, 3, 16, 48, 100),
+])
+def test_tensor_core_rounding_on_the_smoke_edges(B, S, H, P, N, Q):
+    """The emulation at chip_smoke.py's edge shapes, within its tolerances
+    of the plain version on the same bf16 values."""
+    _, t = _both(_inputs(B, S, H, P, N, seed=6), jnp.bfloat16, torch.bfloat16)
+    ins = arrange(*t, chunk=Q)
+    y, s = tensor_core_emulation(*ins)
+    y_p, s_p = ssd_scan_ref(*ins)
+    atol, rtol = SMOKE_BF16_TOL
+    torch.testing.assert_close(y.float(), y_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(s, s_p, atol=SMOKE_STATE_TOL,
+                               rtol=SMOKE_STATE_TOL)
