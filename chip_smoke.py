@@ -13,7 +13,14 @@ Phases, each printing one JSON line:
             the card, at the shapes the main path gives them plus ragged,
             u8/u32, f32/bf16 and NaN/inf cases; bit-identical results (scales
             within rtol 1e-6) and CUDA-event times beside the plain version
-            and the card's bound;
+            and the card's bound.  The hash kernels (hash, compare and the
+            fused per-leaf fold, both element types) also at their
+            persistent grid's edges (1 row, just below, at and above the
+            grid's warp count, ranges ragged against the four-row u8
+            stages) and the fold on ragged manifests (an empty leaf between
+            two others, one leaf of 32,768 rows, 2,000 one-row leaves);
+            timed u8 at the chunk-key shape and u32 at the digest shape,
+            with each launch's device time from torch.profiler;
 4. lm_kernels: flash_attention, ssd_scan and rglru_scan against their plain
             versions (TF32 off for the f32 products), at the serve path's
             shapes (flash at yi-6b's hd 128 and recurrentgemma's hd 256), the
@@ -29,7 +36,8 @@ Phases, each printing one JSON line:
             reported beside it); the SSD kernel refuses tiles above a
             block's shared memory; times beside the plain version, the bound
             and, for flash, PyTorch's scaled_dot_product_attention as a
-            yardstick the port never calls; flash and SSD are timed on their
+            yardstick the port never calls (in bf16, and in f32 with TF32
+            off beside the f32 route); flash and SSD are timed on their
             bf16 (tensor-core) route and on the f32 (CUDA-core) route at the
             same shape, with each launch's device time from torch.profiler;
 5. session: the state-migration path through
@@ -40,9 +48,11 @@ Phases, each printing one JSON line:
             torch.Generator, the rest ragged numpy leaves), a forward migration of
             the reduced set, a re-migration after a one-element in-place change,
             the return trip, and one quant8+zstd migration of a 64 MiB f32 leaf.
-            Every state-plane kernel's launch count must rise in this window,
-            and every batched digest call must make exactly one device->host
-            transfer;
+            Every state-plane kernel's launch count must rise in this window
+            (the hash kernels' counts are also split by element type), and
+            every batched digest call must make exactly one device->host
+            transfer; one batched digest call of the session's leaves, traced
+            with torch.profiler, must launch exactly one hash kernel;
 6. agree:   a small notebook through the same runtime on the card and on the CPU
             (the plain versions, which the CPU tests hold to the JAX reference):
             decisions, modeled seconds and bytes must be equal;
@@ -262,7 +272,7 @@ def phase_kernels() -> list[dict]:
     from repro_torch.kernels.hash_delta import kernel as hk
     from repro_torch.kernels.hash_delta import ops as hops
     from repro_torch.kernels.hash_delta.ref import (
-        block_hash_compare_ref, block_hash_ref,
+        block_hash_compare_ref, block_hash_fold_ref, block_hash_ref,
     )
     from repro_torch.kernels.quant_blockwise import kernel as qk
     from repro_torch.kernels.quant_blockwise.ref import (
@@ -295,33 +305,58 @@ def phase_kernels() -> list[dict]:
     main_q = FIELD_ELEMS // 1024
     rows = []
 
+    # -- the persistent grid's edges -----------------------------------------
+    # each warp hashes one contiguous range of rows: nb below, at and above
+    # the grid's warp count W, and ranges ragged against the u8 route's
+    # four-row stages (4W + 3); both element types
+    def edge_nbs(name, dtype):
+        W = hk.grid_warps(name, dtype, dev)
+        return W, (1, W - 1, W, W + 1, 2 * W + 1, 4 * W + 3)
+
+    def route_of(dtype) -> str:
+        return "u8" if dtype == torch.uint8 else "u32"
+
+    def timed(fn, nbytes, ops, shape):
+        """CUDA-event time, device time per kernel and bound of one launch."""
+        ms = time_ms(fn, reps)
+        b, by = bound(nbytes, ops)
+        return {"ms": ms, "device_kernels_ms": device_kernels_ms(fn),
+                "bound_ms": b, "bound_by": by, "timed_shape": shape}
+
+    grids = {}
+
     # -- block_hash: u32 and u8 rows ------------------------------------
     errs, shapes = 0, []
-    for dtype, nbs in ((torch.int32, (main_u32, 1, 9, 1025)),
-                       (torch.uint8, (main_u8, 1, 9))):
-        for nb in nbs:
+    for dtype, main in ((torch.int32, main_u32), (torch.uint8, main_u8)):
+        W, edges = edge_nbs("block_hash", dtype)
+        grids[f"block_hash/{route_of(dtype)}"] = W
+        for nb in (main, 9, 1025) + edges:
             x = rand_rows(nb, dtype)
             errs = max(errs, same_int(hk.block_hash_kernel(x, w),
                                       block_hash_ref(x, w)))
             shapes.append([nb, 1024, str(dtype).removeprefix("torch.")])
     x = rand_rows(main_u8, torch.uint8)     # timed at the chunk-key shape
-    ms = time_ms(lambda: hk.block_hash_kernel(x, w), reps)
+    u8 = timed(lambda: hk.block_hash_kernel(x, w),
+               x.numel() + w.numel() * 4 + main_u8 * 8, x.numel() * 9,
+               [main_u8, 1024, "uint8"])
     plain_ms = time_ms(lambda: block_hash_ref(x, w), max(2, reps // 10))
-    nbytes = x.numel() + w.numel() * 4 + main_u8 * 8
-    b, by = bound(nbytes, x.numel() * 9)
+    x = rand_rows(main_u32, torch.int32)    # and at the digest shape
+    u32 = timed(lambda: hk.block_hash_kernel(x, w),
+                x.numel() * 4 + w.numel() * 4 + main_u32 * 8, x.numel() * 9,
+                [main_u32, 1024, "int32"])
     rows.append({"name": "block_hash", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/hash_delta.cu",
                  "replaces": "src/repro/kernels/hash_delta/kernel.py:42",
-                 "launches": 0, "max_abs_err": errs, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                 "library_ms": None, "timed_shape": [main_u8, 1024, "uint8"],
+                 "launches": 0, "max_abs_err": errs, **u8,
+                 "plain_ms": plain_ms, "library_ms": None, "u32": u32,
                  "checked_shapes": shapes})
 
     # -- block_hash_compare ----------------------------------------------
     errs, shapes = 0, []
-    for dtype, nbs in ((torch.uint8, (main_u8, 1, 9)),
-                       (torch.int32, (main_u32, 9))):
-        for nb in nbs:
+    for dtype, main in ((torch.uint8, main_u8), (torch.int32, main_u32)):
+        W, edges = edge_nbs("block_hash_compare", dtype)
+        grids[f"block_hash_compare/{route_of(dtype)}"] = W
+        for nb in (main, 9) + edges:
             x = rand_rows(nb, dtype)
             prior = block_hash_ref(x, w).clone()
             prior[nb // 2, 0] += 1                      # one block differs
@@ -333,20 +368,83 @@ def phase_kernels() -> list[dict]:
             if nb > 2 and int(ck.sum()) != 2:
                 raise AssertionError("compare flagged the wrong rows")
             shapes.append([nb, 1024, str(dtype).removeprefix("torch.")])
-    x = rand_rows(main_u8, torch.uint8)
-    prior = block_hash_ref(x, w)
-    has = torch.ones((main_u8, 1), dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: hk.block_hash_compare_kernel(x, w, prior, has), reps)
+
+    def compare_timed(nb, dtype):
+        x = rand_rows(nb, dtype)
+        prior = block_hash_ref(x, w)
+        has = torch.ones((nb, 1), dtype=torch.int32, device=dev)
+        t = timed(lambda: hk.block_hash_compare_kernel(x, w, prior, has),
+                  x.numel() * x.element_size() + w.numel() * 4
+                  + nb * (8 + 4 + 8 + 4), x.numel() * 9 + nb * 3,
+                  [nb, 1024, str(dtype).removeprefix("torch.")])
+        return t, x, prior, has
+
+    u32, *_ = compare_timed(main_u32, torch.int32)
+    u8, x, prior, has = compare_timed(main_u8, torch.uint8)
     plain_ms = time_ms(lambda: block_hash_compare_ref(x, w, prior, has),
                        max(2, reps // 10))
-    nbytes = x.numel() + w.numel() * 4 + main_u8 * (8 + 4 + 8 + 4)
-    b, by = bound(nbytes, x.numel() * 9 + main_u8 * 3)
     rows.append({"name": "block_hash_compare", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/hash_delta.cu",
                  "replaces": "src/repro/kernels/hash_delta/kernel.py:69",
-                 "launches": 0, "max_abs_err": errs, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                 "library_ms": None, "timed_shape": [main_u8, 1024, "uint8"],
+                 "launches": 0, "max_abs_err": errs, **u8,
+                 "plain_ms": plain_ms, "library_ms": None, "u32": u32,
+                 "checked_shapes": shapes})
+
+    # -- block_hash_fold: the hash and the per-leaf fold in one launch ----
+    def fold_inputs(nbs):
+        fw = torch.from_numpy(hops._fold_weights(nbs)).to(dev)
+        return fw[0, :sum(nbs)], fw[1, :sum(nbs)]
+
+    def manifests(W):
+        return {
+            "digest": [main_u32 // N_KEEP] * N_KEEP,  # the edge maps
+            "empty_between": [5, 0, 7],
+            "one_leaf": [main_u32],             # one leaf over 32,768 rows
+            "one_row_leaves": [1] * 2000,
+            "ragged": [1, 0, W - 2, 3, 0, 0, W + 5, 4],
+            "below_grid": [1] * (W - 1),
+            "grid_plus_one": [W // 2, W // 2 + 1 + W % 2],
+        }
+
+    errs, shapes = 0, []
+    for dtype in (torch.int32, torch.uint8):
+        W, _ = edge_nbs("block_hash_fold", dtype)
+        grids[f"block_hash_fold/{route_of(dtype)}"] = W
+        for label, nbs in manifests(W).items():
+            x = rand_rows(sum(nbs), dtype)
+            idx, seg = fold_inputs(nbs)
+            got = hk.block_hash_fold_kernel(x, w, idx, seg, len(nbs))
+            errs = max(errs, same_int(
+                got, block_hash_fold_ref(x, w, idx, seg, len(nbs))))
+            shapes.append([label, len(nbs), sum(nbs),
+                           str(dtype).removeprefix("torch.")])
+
+    def fold_timed(nbs, dtype):
+        x = rand_rows(sum(nbs), dtype)
+        idx, seg = fold_inputs(nbs)
+        nb = sum(nbs)
+        t = timed(lambda: hk.block_hash_fold_kernel(x, w, idx, seg, len(nbs)),
+                  x.numel() * x.element_size() + w.numel() * 4 + nb * 8
+                  + len(nbs) * 8, x.numel() * 9 + nb * 4,
+                  [nb, 1024, str(dtype).removeprefix("torch."), len(nbs)])
+        return t, x, idx, seg
+
+    # u32 at the digest shape (the reduced set's 32 leaves), u8 at the
+    # chunk-key shape in 32 leaves; the plain hash on the same u32 grid
+    u8, *_ = fold_timed([main_u8 // N_KEEP] * N_KEEP, torch.uint8)
+    nbs = [main_u32 // N_KEEP] * N_KEEP
+    u32, x, idx, seg = fold_timed(nbs, torch.int32)
+    hash_same_grid_ms = time_ms(lambda: hk.block_hash_kernel(x, w), reps)
+    plain_ms = time_ms(lambda: block_hash_fold_ref(x, w, idx, seg, len(nbs)),
+                       max(2, reps // 10))
+    rows.append({"name": "block_hash_fold", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/hash_delta.cu",
+                 "replaces": "src/repro/kernels/hash_delta/kernel.py:42",
+                 "also_replaces": "src/repro/kernels/hash_delta/ops.py:319 "
+                                  "(_batched_lanes: segment_sum)",
+                 "launches": 0, "max_abs_err": errs, **u32,
+                 "plain_ms": plain_ms, "library_ms": None,
+                 "block_hash_same_grid_ms": hash_same_grid_ms, "u8": u8,
                  "checked_shapes": shapes})
 
     # -- quantize / dequantize ---------------------------------------------
@@ -404,7 +502,7 @@ def phase_kernels() -> list[dict]:
                  "checked_shapes": shapes})
     torch.cuda.synchronize()
     emit({"phase": "kernels", "checked": [r["name"] for r in rows],
-          "bit_identical": True, "scale_rtol": 1e-6,
+          "bit_identical": True, "scale_rtol": 1e-6, "hash_grid_warps": grids,
           "seconds": time.perf_counter() - t_phase})
     return rows
 
@@ -526,7 +624,22 @@ def phase_lm_kernels() -> list[dict]:
         q32, k32, v32 = q.float(), k.float(), v.float()
         ms_f32 = time_ms(lambda: fk.flash_attention_kernel(q32, k32, v32),
                          max(2, REPS // 4))
-        del q32, k32, v32
+        # the f32 route's yardstick: SDPA on the same f32 values (TF32 off
+        # for the phase), called with enable_gqa and with kv repeated
+        f32_lib = {}
+        try:
+            f32_lib["scaled_dot_product_attention(is_causal, enable_gqa)"] = \
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    q32, k32, v32, is_causal=True, enable_gqa=True),
+                    max(2, REPS // 4))
+        except TypeError:      # a torch without enable_gqa
+            pass
+        kr32 = k32.repeat_interleave(H // KV, dim=1)
+        vr32 = v32.repeat_interleave(H // KV, dim=1)
+        f32_lib["scaled_dot_product_attention(is_causal), kv repeated"] = \
+            time_ms(lambda: F.scaled_dot_product_attention(
+                q32, kr32, vr32, is_causal=True), max(2, REPS // 4))
+        del q32, k32, v32, kr32, vr32
         plain_ms = time_ms(lambda: attention_ref(q, k, v), max(2, REPS // 10))
         try:
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -543,6 +656,8 @@ def phase_lm_kernels() -> list[dict]:
                       BF16_OPS_PER_S)
         return {"max_abs_err_vs_bf16_plain": vs_bf16_plain,
                 "ms": ms, "ms_f32": ms_f32, "device_kernels_ms": per_kernel,
+                "library_ms_f32": min(f32_lib.values()),
+                "library_ms_f32_by_call": f32_lib,
                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                 "library_ms": library_ms, "library_call": library_call,
                 "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
@@ -757,6 +872,25 @@ def state_bytes(ns: dict) -> tuple[int, int]:
             sum(n for n, cuda in seen.values() if cuda))
 
 
+def hash_launches_in(fn) -> tuple[int, list[str]]:
+    """Launches of the hash kernel in one call of ``fn`` and the names of
+    every device activity (kernels, copies, fills) it ran, from a
+    ``torch.profiler`` trace of that call alone."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():   # the profiler's note on clearing events
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    return sum("hash_rows_kernel" in n for n in names), names
+
+
 def phase_session(tmp: Path) -> dict:
     import numpy as np
     import torch
@@ -822,6 +956,7 @@ def phase_session(tmp: Path) -> dict:
         mig.HybridRuntime.close = orig_close
         mig.MigrationEngine.migrate = orig_migrate
     launches = {**hk.LAUNCHES, **qk.LAUNCHES}
+    by_route = dict(hk.ROUTE_LAUNCHES)
 
     # -- what came out -----------------------------------------------------
     local, remote = (captured["spacenet7-tiles"][k] for k in ("local", "remote"))
@@ -865,6 +1000,27 @@ def phase_session(tmp: Path) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
+
+    # one batched digest call of the session's own leaves (the edge maps on
+    # the card, the footprint rasters on the host) under the profiler: one
+    # hash launch, which also folds the leaves, and no eager fold ops
+    leaves = list(local["edges"]) + list(local["footprints"])
+    digests = hops.digest_leaves(leaves, device="cuda")
+    prior = list(digests)
+    prior[0] ^= 1
+    traced = {}
+    for name, call in (
+            ("digest_leaves", lambda: hops.digest_leaves(leaves, device="cuda")),
+            ("digest_leaves_delta", lambda: hops.digest_leaves_delta(
+                leaves, prior, device="cuda"))):
+        n_hash, names = hash_launches_in(call)
+        traced[name] = {"hash_launches": n_hash,
+                        "device_activities": sorted(set(names))}
+        if n_hash != 1:
+            raise AssertionError(f"{name}: {n_hash} hash kernel launches in "
+                                 f"one batched call, expected 1: {names}")
+    if hops.digest_leaves_delta(leaves, prior, device="cuda") != (digests, [0]):
+        raise AssertionError("digest_leaves_delta disagrees with digest_leaves")
     emit({"phase": "session", "device": main["device"],
           "full_state_bytes": full, "full_state_on_card_bytes": on_card,
           "wall_seconds": {"main_session": t1 - t0, "quant8_session": t2 - t1,
@@ -879,7 +1035,8 @@ def phase_session(tmp: Path) -> dict:
                      "field_bytes": src_field.nbytes,
                      "max_err_over_half_step": float((err / half_step).max()),
                      "decisions": quant["decisions"]},
-          "launches": launches,
+          "launches": launches, "launches_by_route": by_route,
+          "one_batched_call_traced": traced,
           "batched_digest_calls": watch.calls,
           "cuda_syncs_per_batched_call": sorted(set(watch.cuda_syncs)),
           "extra_syncs": watch.extra})

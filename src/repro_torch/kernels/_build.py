@@ -8,6 +8,12 @@ makes a changed source rebuild.  :func:`build_all`
 starts one ``nvcc`` per source, all together; :func:`load` builds what is
 missing and returns the loaded library with every entry point's
 ``argtypes`` set.  Nothing here runs at import time.
+
+Every entry point returns an ``int``: a launcher returns
+``cudaGetLastError()`` and sizes its grid itself (``hash_delta.cu``'s
+persistent grid asks the CUDA runtime for the current device's SM count and
+the kernel's resident blocks per SM, once per device); ``hash_grid_warps``
+returns that grid's warp count, so a check can aim at its edges.
 """
 from __future__ import annotations
 
@@ -38,6 +44,9 @@ SIGNATURES = {
         "hash_rows_u8": (_P, _P, _P, _N, _P),
         "hash_compare_rows_u32": (_P, _P, _P, _P, _P, _P, _N, _P),
         "hash_compare_rows_u8": (_P, _P, _P, _P, _P, _P, _N, _P),
+        "hash_fold_rows_u32": (_P, _P, _P, _P, _P, _N, _N, _P),
+        "hash_fold_rows_u8": (_P, _P, _P, _P, _P, _N, _N, _P),
+        "hash_grid_warps": (_I, _I),
     },
     "quant_blockwise": {
         "quantize_rows_f32": (_P, _P, _P, _N, _P),

@@ -3,8 +3,9 @@
 Each wrapper checks what the kernel takes (a CUDA tensor, its dtype, shape,
 contiguity and 16-byte alignment) and raises on anything else, allocates
 the outputs, launches on PyTorch's current stream and raises if the launch
-returned an error.  ``LAUNCHES`` counts launches per kernel; it is bumped
-only where a kernel is launched.
+returned an error.  ``LAUNCHES`` counts launches per kernel and
+``ROUTE_LAUNCHES`` per kernel and element type (``"block_hash/u8"``); both
+are bumped only where a kernel is launched.
 """
 from __future__ import annotations
 
@@ -12,14 +13,34 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = {"block_hash": 0, "block_hash_compare": 0}
+LAUNCHES = {"block_hash": 0, "block_hash_compare": 0, "block_hash_fold": 0}
 
 _ENTRY = {torch.int32: "u32", torch.uint8: "u8"}
+ROUTE_LAUNCHES = {f"{k}/{r}": 0 for k in LAUNCHES for r in _ENTRY.values()}
+_MODE = {"block_hash": 0, "block_hash_compare": 1, "block_hash_fold": 2}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name: str, x2d: torch.Tensor) -> None:
+    LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[f"{name}/{_ENTRY[x2d.dtype]}"] += 1
+
+
+def grid_warps(name: str, dtype: torch.dtype, device) -> int:
+    """Warps of the persistent grid that kernel ``name`` launches for rows
+    of ``dtype`` on ``device`` (each warp hashes one contiguous range of
+    rows; fewer rows than warps leave some warps idle)."""
+    lib = _build.load("hash_delta")
+    with torch.cuda.device(device):
+        n = lib.hash_grid_warps(1 if dtype == torch.uint8 else 4, _MODE[name])
+    if n <= 0:
+        raise RuntimeError(f"hash_grid_warps: CUDA error {-n}")
+    return n
 
 
 def _check_rows(x2d: torch.Tensor, weights: torch.Tensor) -> int:
@@ -50,7 +71,7 @@ def block_hash_kernel(x2d: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         err = fn(x2d.data_ptr(), weights.data_ptr(), h.data_ptr(), nb,
                  _build.stream_handle(x2d.device))
     _build.check(err, "block_hash")
-    LAUNCHES["block_hash"] += 1
+    _count("block_hash", x2d)
     return h
 
 
@@ -72,5 +93,40 @@ def block_hash_compare_kernel(x2d: torch.Tensor, weights: torch.Tensor,
                  has_prior.data_ptr(), h.data_ptr(), changed.data_ptr(), nb,
                  _build.stream_handle(x2d.device))
     _build.check(err, "block_hash_compare")
-    LAUNCHES["block_hash_compare"] += 1
+    _count("block_hash_compare", x2d)
     return h, changed
+
+
+def block_hash_fold_kernel(x2d: torch.Tensor, weights: torch.Tensor,
+                           idx: torch.Tensor, seg: torch.Tensor,
+                           num_leaves: int) -> torch.Tensor:
+    """The hash of every row folded per leaf in the same launch: row ``r``
+    adds ``h[r] * idx[r]`` (mod 2^32) into the lanes of leaf ``seg[r]``.
+    ``idx`` (nb,) int32 bits, ``seg`` (nb,) int32 in [0, num_leaves)
+    -> (num_leaves, 2) int32 lanes (a leaf with no rows keeps 0)."""
+    rows = x2d.shape[0] if x2d.dim() else 0
+    for t, what in ((idx, "idx"), (seg, "seg")):      # one entry per row
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: dtype {t.dtype}, expected torch.int32")
+        if tuple(t.shape) != (rows,):
+            raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
+                             f"({rows},), one entry per row of x2d")
+    nb = _check_rows(x2d, weights)
+    _build.check_tensor(idx, "idx", (torch.int32,), (nb,))
+    _build.check_tensor(seg, "seg", (torch.int32,), (nb,))
+    if idx.device != x2d.device or seg.device != x2d.device:
+        raise ValueError("x2d, idx and seg lie on different devices")
+    if num_leaves < 0:
+        raise ValueError(f"num_leaves must be >= 0, got {num_leaves}")
+    lanes = torch.zeros((num_leaves, 2), dtype=torch.int32, device=x2d.device)
+    if nb == 0 or num_leaves == 0:
+        return lanes
+    lib = _build.load("hash_delta")
+    fn = getattr(lib, f"hash_fold_rows_{_ENTRY[x2d.dtype]}")
+    with torch.cuda.device(x2d.device):
+        err = fn(x2d.data_ptr(), weights.data_ptr(), idx.data_ptr(),
+                 seg.data_ptr(), lanes.data_ptr(), nb, num_leaves,
+                 _build.stream_handle(x2d.device))
+    _build.check(err, "block_hash_fold")
+    _count("block_hash_fold", x2d)
+    return lanes

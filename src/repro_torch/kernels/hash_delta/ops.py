@@ -9,11 +9,13 @@ as ``(hi << 32) | lo``.
 **Batched manifest digesting.**  ``digest_leaves`` packs every leaf of a
 manifest -- ragged sizes, numpy arrays and tensors -- into one block grid on
 the device and digests the whole namespace in one kernel launch with one
-device->host transfer.  ``digest_leaves_delta`` compares against the prior
-digests on the device and brings lanes and changed flags home in that same
-single transfer.  Both are bit-identical to the per-leaf path: each leaf is
-padded to its own block boundary, and the per-leaf fold is an unsigned
-32-bit weighted sum, exact in any order mod 2^32.
+device->host transfer; on a card that launch also folds each leaf's block
+digests into its lanes (``block_hash_fold_kernel``).  ``digest_leaves_delta``
+compares against the prior digests on the device and brings lanes and
+changed flags home in that same single transfer.  Both are bit-identical to
+the per-leaf path: each leaf is padded to its own block boundary, and the
+per-leaf fold is an unsigned 32-bit weighted sum, exact in any order mod
+2^32.
 
 Dispatch: a grid on the CPU goes to the plain PyTorch version
 (:mod:`.ref`); a grid on a CUDA device goes to the CUDA kernel
@@ -32,10 +34,10 @@ import torch
 
 from repro_torch.device import h2d
 from repro_torch.kernels.hash_delta.kernel import (
-    block_hash_compare_kernel, block_hash_kernel,
+    block_hash_compare_kernel, block_hash_fold_kernel, block_hash_kernel,
 )
 from repro_torch.kernels.hash_delta.ref import (
-    MASK, block_hash_compare_ref, block_hash_ref, mul32, u32,
+    block_hash_compare_ref, block_hash_fold_ref, block_hash_ref,
 )
 
 BLOCK = 1024
@@ -123,24 +125,18 @@ def _as_u32_blocks(x: torch.Tensor) -> torch.Tensor:
     return flat.reshape(-1, BLOCK)
 
 
-def _fold_one(h: torch.Tensor) -> torch.Tensor:
-    """(nb, LANES) int32 lanes -> (LANES,) int64 weighted fold mod 2^32."""
-    nb = h.shape[0]
-    idx = mul32(torch.arange(nb, dtype=torch.int64, device=h.device),
-                _FOLD) + 1
-    return mul32(u32(h), (idx & MASK)[:, None]).sum(0) & MASK
-
-
 def block_digests(x: torch.Tensor) -> torch.Tensor:
     """Any tensor -> (nb, 2) int32 per-block digest lanes, on its device."""
     return _lanes(_as_u32_blocks(x))
 
 
 def tensor_digest(x: torch.Tensor) -> int:
-    """Any tensor -> one 64-bit int digest (content hash for delta migration)."""
-    lo, hi = _fold_one(block_digests(x)).cpu().tolist()
+    """Any tensor -> one 64-bit int digest (content hash for delta migration):
+    the batched fold over a manifest of one leaf."""
+    x2d = _as_u32_blocks(x)
+    lanes = _batched_lanes(x2d, [x2d.shape[0]]).cpu().numpy()
     _note_sync()
-    return (int(hi) << 32) | int(lo)
+    return _fold_digests(lanes)[0]
 
 
 def block_digests_compare(x: torch.Tensor, prior: torch.Tensor,
@@ -288,33 +284,37 @@ def _numel(a) -> int:
     return a.numel() if isinstance(a, torch.Tensor) else int(np.asarray(a).size)
 
 
-def _fold_weights(nbs) -> tuple[np.ndarray, np.ndarray]:
-    """Per-block fold weight (as int32 bits) + leaf segment id, host-side."""
+def _fold_weights(nbs) -> np.ndarray:
+    """Per-block fold weight (row 0, as int32 bits) and leaf segment id
+    (row 1), host-side, in one (2, total rounded up to 4) int32 array: one
+    copy to the card, and each row starts 16-byte aligned."""
     nbs_a = np.asarray(nbs, np.int64)
     total = int(nbs_a.sum())
+    out = np.zeros((2, -(-total // 4) * 4), np.int32)
     seg = np.repeat(np.arange(len(nbs_a), dtype=np.int64), nbs_a)
     starts = np.repeat(np.cumsum(nbs_a) - nbs_a, nbs_a)
     local = (np.arange(total, dtype=np.int64) - starts).astype(np.uint32)
-    idx = local * np.uint32(_FOLD) + np.uint32(1)
-    return idx.view(np.int32), seg
+    out[0, :total] = (local * np.uint32(_FOLD) + np.uint32(1)).view(np.int32)
+    out[1, :total] = seg
+    return out
 
 
 def _batched_lanes(x2d: torch.Tensor, nbs) -> torch.Tensor:
-    """One launch over the packed grid -> (num_leaves, 2) int64 lanes.
+    """One launch over the packed grid -> (num_leaves, 2) int32 lane bits.
 
-    The per-leaf fold is a weighted uint32 sum; ``index_add_`` reorders the
-    additions, but unsigned addition is exact mod 2^32 in any order, so the
-    result is bit-identical to the per-leaf fold."""
-    idx, seg = _fold_weights(nbs)
-    idx_t, seg_t = h2d(idx, x2d.device), h2d(seg, x2d.device)
-    prod = mul32(u32(_lanes(x2d)), u32(idx_t)[:, None])
-    lanes = torch.zeros((len(nbs), LANES), dtype=torch.int64,
-                        device=x2d.device)
-    return lanes.index_add_(0, seg_t, prod) & MASK
+    A grid on the CPU takes the plain version (the hash, then
+    ``index_add_``); a grid on a card takes the fold kernel, which hashes
+    and folds in the same launch."""
+    fw = h2d(_fold_weights(nbs), x2d.device)
+    nb = x2d.shape[0]
+    fold = (block_hash_fold_ref if x2d.device.type == "cpu"
+            else block_hash_fold_kernel)
+    return fold(x2d, weights(x2d.device), fw[0, :nb], fw[1, :nb], len(nbs))
 
 
 def _fold_digests(lanes: np.ndarray) -> list[int]:
-    lanes = np.asarray(lanes).astype(np.uint64)
+    """(n, 2) lanes (uint32, or int32 bits) -> n 64-bit digests."""
+    lanes = np.asarray(lanes).view(np.uint32).astype(np.uint64)
     return ((lanes[:, 1] << np.uint64(32)) | lanes[:, 0]).tolist()
 
 
@@ -351,7 +351,7 @@ def digest_leaves_delta(leaves, prior_digests, *, device="cuda"):
     n = len(leaves)
     if n == 0:
         return [], []
-    prior = np.zeros((n, LANES), np.int64)
+    prior = np.zeros((n, LANES), np.uint32)
     has_prior = np.zeros(n, bool)
     for j, d in enumerate(prior_digests):
         if d is not None:
@@ -364,9 +364,9 @@ def digest_leaves_delta(leaves, prior_digests, *, device="cuda"):
                    if not has_prior[j] or prior_digests[j] != 0]
         return [0] * n, changed
     lanes = _batched_lanes(x2d, nbs)
-    prior_t, has_t = h2d(prior, device), h2d(has_prior, device)
+    prior_t, has_t = h2d(prior.view(np.int32), device), h2d(has_prior, device)
     changed = ~has_t | (lanes != prior_t).any(dim=1)
-    both = torch.cat([lanes, changed[:, None].to(torch.int64)], 1)
+    both = torch.cat([lanes, changed[:, None].to(torch.int32)], 1)
     both = both.cpu().numpy()
     _note_sync()
     return _fold_digests(both[:, :LANES]), np.flatnonzero(both[:, LANES]).tolist()

@@ -57,3 +57,15 @@ def block_hash_compare_ref(x2d, weights, prior, has_prior):
     h = block_hash_ref(x2d, weights)
     same = (h == prior).all(dim=1) & (has_prior[:, 0] != 0)
     return h, (~same).to(torch.int32)[:, None]
+
+
+def block_hash_fold_ref(x2d, weights, idx, seg, num_leaves: int):
+    """The hash of every row folded per leaf: row ``r`` adds ``h[r] *
+    idx[r]`` (mod 2^32) into the lanes of leaf ``seg[r]``.  ``idx`` (nb,)
+    int32 bits, ``seg`` (nb,) integer leaf ids -> (num_leaves, lanes) int32
+    bits.  ``index_add_`` reorders the additions, but unsigned addition is
+    exact mod 2^32 in any order, so this equals the per-leaf fold."""
+    prod = mul32(u32(block_hash_ref(x2d, weights)), u32(idx)[:, None])
+    lanes = torch.zeros((num_leaves, weights.shape[0]), dtype=torch.int64,
+                        device=x2d.device)
+    return as_i32(lanes.index_add_(0, seg.to(torch.int64), prod) & MASK)
