@@ -20,10 +20,13 @@ Phases, each printing one JSON line:
             stages) and the fold on ragged manifests (an empty leaf between
             two others, one leaf of 32,768 rows, 2,000 one-row leaves);
             timed u8 at the chunk-key shape and u32 at the digest shape,
-            with each launch's device time from torch.profiler;
+            with each launch's device time from torch.profiler (quantize and
+            dequantize too, and torch.mul(q, scale) as dequantize's
+            yardstick);
 4. lm_kernels: flash_attention, ssd_scan and rglru_scan against their plain
             versions (TF32 off for the f32 products), at the serve path's
-            shapes (flash at yi-6b's hd 128 and recurrentgemma's hd 256), the
+            shapes (flash at yi-6b's hd 128, stablelm-12b's hd 160 and
+            recurrentgemma's hd 256), the
             CPU tests' shapes, ragged ones and the tensor-core routes' edges
             (S under one tile, full attention, H/KV 2 and 16; one chunk,
             Q = 100, H not a multiple of the 8-head block), f32 within 2e-5
@@ -56,22 +59,36 @@ Phases, each printing one JSON line:
 6. agree:   a small notebook through the same runtime on the card and on the CPU
             (the plain versions, which the CPU tests hold to the JAX reference):
             decisions, modeled seconds and bytes must be equal;
-7. serve:   the LM serving path through ``repro_torch.launch.serve.serve_lm`` at
+7. socket:  the session's two notebooks again with ``transport="socket"``: the
+            remote env is a child ``repro_torch.core.remote_worker --device
+            cuda`` on the same card and every migration streams wire frames
+            over TCP (the reduced set, the one-chunk re-migration, the return
+            trips, the quant8 leg); where each cell ran and the migrated
+            names equal a loopback run's with knowledge probing off; what
+            left comes home (or is read back from the child) bit-equal, the
+            quant8 field equal to a local quantize/dequantize round trip; the
+            parent's and the child's kernel counts rise; the child exits 0
+            at BYE; prints each leg's wall time and bytes on the wire;
+8. serve:   the LM serving path through ``repro_torch.launch.serve.serve_lm`` at
             full yi-6b (batch 4, prompt 2048), full mamba2-370m (batch 8,
-            prompt 2000) and full recurrentgemma-9b (batch 4, prompt 2048,
-            its local window), seeded bf16 weights, 32 greedy tokens each;
-            one prefill must launch flash_attention 32 times (yi-6b),
-            ssd_scan 48 times (mamba2), rglru_scan 26 and flash_attention 12
-            times (recurrentgemma), once per layer; every id must lie in [0,
+            prompt 2000), full recurrentgemma-9b (batch 4, prompt 2048, its
+            local window) and full stablelm-12b (batch 4, prompt 2048),
+            seeded bf16 weights, 32 greedy tokens each; one prefill must
+            launch flash_attention 32 times (yi-6b), ssd_scan 48 times
+            (mamba2), rglru_scan 26 and flash_attention 12 times
+            (recurrentgemma), flash_attention 40 times at hd 160
+            (stablelm-12b), once per layer; every id must lie in [0,
             padded_vocab); prints prefill seconds, decode tokens/s and the
             peak memory of prefill and decode;
-8. serve_agree: the reduced yi-6b, mamba2-370m and recurrentgemma-9b
+9. serve_agree: the reduced yi-6b, mamba2-370m, recurrentgemma-9b
             (prompts 48, full causal attention through flash, and 64, banded
-            attention) in f32 on the card and on the CPU with the same
-            weights: logits within 1e-4 (dense, hybrid) and 1e-3 (mamba2),
-            equal greedy ids.
+            attention) and stablelm-12b (hd 16, and hd 160) in f32 on the
+            card and on the CPU with the same weights: logits within 1e-4
+            (dense, hybrid) and 1e-3 (mamba2), equal greedy ids.
 
-Then the ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Any
+Then the ``kernels`` line (each kernel's launches summed over the session,
+socket and serve runs, and split by run in ``launches_by_path``), and last
+``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -479,26 +496,39 @@ def phase_kernels() -> list[dict]:
                 xq[:1025].to(torch.bfloat16)):
         check_quant(x2d.contiguous())
     ms = time_ms(lambda: qk.quantize_kernel(xq), reps)
+    per_kernel = device_kernels_ms(lambda: qk.quantize_kernel(xq))
     plain_ms = time_ms(lambda: quantize_ref(xq), max(2, reps // 10))
     b, by = bound(xq.numel() * (4 + 1) + main_q * 4, xq.numel() * 6)
     rows.append({"name": "quantize", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/quant_blockwise.cu",
                  "replaces": "src/repro/kernels/quant_blockwise/kernel.py:27",
                  "launches": 0, "max_abs_err": qerr, "ms": ms,
+                 "device_kernels_ms": per_kernel,
                  "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                  "library_ms": None, "timed_shape": [main_q, 1024, "float32"],
                  "checked_shapes": shapes})
     q, s = qk.quantize_kernel(xq)
     ms = time_ms(lambda: qk.dequantize_kernel(q, s, torch.float32), reps)
+    per_kernel = device_kernels_ms(
+        lambda: qk.dequantize_kernel(q, s, torch.float32))
     plain_ms = time_ms(lambda: dequantize_ref(q, s, torch.float32),
                        max(2, reps // 10))
+    # the yardstick: one PyTorch call for q * scale (int8 x f32 -> f32),
+    # which the port never calls
+    library_ms = time_ms(lambda: torch.mul(q, s[:, None]), reps)
+    if not torch.equal(torch.mul(q, s[:, None]),
+                       qk.dequantize_kernel(q, s, torch.float32)):
+        raise AssertionError("torch.mul(q, scale) is not dequantize's function")
     b, by = bound(q.numel() * (1 + 4) + main_q * 4, q.numel())
     rows.append({"name": "dequantize", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/quant_blockwise.cu",
                  "replaces": "src/repro/kernels/quant_blockwise/kernel.py:42",
                  "launches": 0, "max_abs_err": derr, "ms": ms,
+                 "device_kernels_ms": per_kernel,
                  "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                 "library_ms": None, "timed_shape": [main_q, 1024, "float32"],
+                 "library_ms": library_ms,
+                 "library_call": "torch.mul(q, scale[:, None])",
+                 "timed_shape": [main_q, 1024, "float32"],
                  "checked_shapes": shapes})
     torch.cuda.synchronize()
     emit({"phase": "kernels", "checked": [r["name"] for r in rows],
@@ -522,6 +552,7 @@ TOL = {("flash_attention", "float32"): (2e-5, 2e-5),
        ("rglru_scan", "float32"): (1e-5, 1e-5),
        ("rglru_scan", "bfloat16"): (1e-3, 1.6e-2)}
 RG_BATCH, RG_PROMPT = 4, 2048          # recurrentgemma-9b: the local window
+SL_BATCH, SL_PROMPT = 4, 2048          # stablelm-12b
 
 
 def phase_lm_kernels() -> list[dict]:
@@ -574,6 +605,10 @@ def phase_lm_kernels() -> list[dict]:
              rg.resolved_head_dim)
     rg_red_fa = (REDUCED_BATCH, rgr.num_heads, rgr.num_kv_heads,
                  REDUCED_PROMPT, rgr.resolved_head_dim)
+    # stablelm-12b's prefill: GQA 32:8, hd 160
+    sl = get_config("stablelm-12b")
+    sl_fa = (SL_BATCH, sl.num_heads, sl.num_kv_heads, SL_PROMPT,
+             sl.resolved_head_dim)
     fa_cases = [(main_fa, bf16, True), (main_fa, f32, True),
                 ((1, 4, 4, 128, 64), f32, True), ((2, 8, 2, 256, 64), f32, True),
                 ((1, 8, 1, 128, 128), f32, True), ((1, 6, 6, 192, 32), f32, True),
@@ -593,7 +628,14 @@ def phase_lm_kernels() -> list[dict]:
                 ((1, 16, 1, 1, 256), bf16, True), ((2, 16, 1, 17, 256), bf16, True),
                 ((1, 4, 2, 200, 128), bf16, False), ((1, 4, 1, 200, 256), bf16, False),
                 ((1, 32, 2, 333, 128), bf16, True), ((1, 4, 2, 97, 256), bf16, True),
-                ((2, 4, 2, 77, 64), bf16, False), ((1, 2, 1, 130, 16), bf16, True)]
+                ((2, 4, 2, 77, 64), bf16, False), ((1, 2, 1, 130, 16), bf16, True),
+                # hd 160 (stablelm-12b): its serve shape on both routes, S
+                # under one tile, ragged S, full attention, H/KV 2 and 4
+                (sl_fa, bf16, True), (sl_fa, f32, True),
+                ((1, 4, 2, 1, 160), bf16, True), ((2, 4, 2, 17, 160), bf16, True),
+                ((2, 4, 2, 17, 160), f32, True), ((1, 8, 2, 333, 160), bf16, True),
+                ((1, 8, 2, 333, 160), f32, True), ((1, 4, 2, 200, 160), bf16, False),
+                ((1, 4, 2, 200, 160), f32, False), ((2, 32, 8, 130, 160), bf16, True)]
     def plain_f32(q, k, v, causal=True):
         """The plain version on the same values widened to f32 (exactly),
         rounded to the input dtype at the end: the kernel's arithmetic.
@@ -673,6 +715,7 @@ def phase_lm_kernels() -> list[dict]:
              "max_abs_err_bf16": errs["flash_attention", "bfloat16"],
              **time_flash(*main_fa),
              "hd256": time_flash(*rg_fa),   # recurrentgemma-9b's prefill
+             "hd160": time_flash(*sl_fa),   # stablelm-12b's prefill
              "checked_shapes": checked}]
 
     # -- SSD scan --------------------------------------------------------
@@ -891,6 +934,25 @@ def hash_launches_in(fn) -> tuple[int, list[str]]:
     return sum("hash_rows_kernel" in n for n in names), names
 
 
+def write_notebooks(tmp: Path) -> tuple[Path, Path]:
+    """The main path's two notebooks as .ipynb files under ``tmp``."""
+    main_nb = tmp / "spacenet7_tiles.ipynb"
+    main_nb.write_text(json.dumps(ipynb("spacenet7-tiles", [
+        (SETUP, 0.3), (KMEANS, 600.0), (TWEAK, 0.1), (KMEANS, 600.0),
+        (REPORT, 0.2)])))
+    quant_nb = tmp / "quant_field.ipynb"
+    quant_nb.write_text(json.dumps(ipynb("quant-field", [
+        (QUANT_SETUP, 1.0), (QUANT_HEAVY, 300.0), (QUANT_REPORT, 0.2)])))
+    return main_nb, quant_nb
+
+
+def source_field():
+    """The quant8 leaf as the quant notebook's setup cell makes it."""
+    import torch
+    return torch.randn(FIELD_ELEMS, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 1), device="cuda")
+
+
 def phase_session(tmp: Path) -> dict:
     import numpy as np
     import torch
@@ -901,13 +963,7 @@ def phase_session(tmp: Path) -> dict:
     from repro_torch.kernels.quant_blockwise import kernel as qk
     from repro_torch.launch.notebook import run_notebook
 
-    main_nb = tmp / "spacenet7_tiles.ipynb"
-    main_nb.write_text(json.dumps(ipynb("spacenet7-tiles", [
-        (SETUP, 0.3), (KMEANS, 600.0), (TWEAK, 0.1), (KMEANS, 600.0),
-        (REPORT, 0.2)])))
-    quant_nb = tmp / "quant_field.ipynb"
-    quant_nb.write_text(json.dumps(ipynb("quant-field", [
-        (QUANT_SETUP, 1.0), (QUANT_HEAVY, 300.0), (QUANT_REPORT, 0.2)])))
+    main_nb, quant_nb = write_notebooks(tmp)
 
     watch = SyncWatch()
     orig = {n: getattr(red, n) for n in
@@ -985,9 +1041,7 @@ def phase_session(tmp: Path) -> dict:
 
     # the field as the setup cell made it (the return trip replaced the local
     # copy with the decoded one, as the reference does)
-    src_field = torch.randn(
-        FIELD_ELEMS, generator=torch.Generator(device="cuda").manual_seed(
-            SEED + 1), device="cuda").cpu().numpy()
+    src_field = source_field().cpu().numpy()
     got = captured["quant-field"]["remote"]["field"]
     blocks = src_field.reshape(-1, 1024)
     # half a quantization step, plus the f32 rounding of x / s and q * s
@@ -1043,6 +1097,218 @@ def phase_session(tmp: Path) -> dict:
     if not all(s == 1 for s in watch.cuda_syncs):
         raise AssertionError(f"synchronising CUDA calls per batched digest "
                              f"call: {watch.cuda_syncs}, expected 1 each")
+    return launches
+
+
+# run in the socket child: its own kernels' launch counts, read home by FETCH
+CHILD_COUNTS = """
+import repro_torch.kernels.hash_delta.kernel as _hk
+import repro_torch.kernels.quant_blockwise.kernel as _qk
+child_launches = {**_hk.LAUNCHES, **_qk.LAUNCHES}
+"""
+
+
+def phase_socket(tmp: Path) -> dict:
+    """The main path's notebooks with ``transport="socket"``: the remote env
+    is a child ``repro_torch.core.remote_worker --device cuda`` on the same
+    card, and every migration streams wire frames over TCP.  Checks: the
+    decisions and the migrated names equal those of a loopback run with
+    knowledge probing off (socket mode turns it off); the forward leg
+    carries the reduced set (>= 100 MiB of CUDA tensors, codec ``none``),
+    the re-migration after the one-element change only the changed leaf's
+    dirty chunk, and a return trip follows; the edge maps read back from
+    the child are bit-equal to what left, and the quant8 field that comes
+    home equals a local quantize/dequantize round trip of the source; the
+    parent's hash, compare and quantize counts and the child's hash and
+    dequantize counts rise in the window (the child streams home with its
+    own codec, zlib, as the reference's socket mode sets it, so the parent
+    dequantizes nothing); the child exits 0 at BYE.  Returns the parent's
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import migration as mig
+    from repro_torch.core.transport import SubprocessEnv
+    from repro_torch.kernels.hash_delta import kernel as hk
+    from repro_torch.kernels.quant_blockwise import kernel as qk
+    from repro_torch.launch.notebook import run_notebook
+
+    t_phase = time.perf_counter()
+    main_nb, quant_nb = write_notebooks(tmp)
+    runs = ((main_nb, "none"), (quant_nb, "quant8+zstd"))
+    nb_name = {main_nb: "spacenet7-tiles", quant_nb: "quant-field"}
+    loopback, loop_walls = {}, {}
+    for nb, codec in runs:
+        t0 = time.perf_counter()
+        loopback[nb], _ = run_notebook(str(nb), sessions=2, codec=codec,
+                                       policy="single", use_knowledge=False,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        loop_walls[nb.stem] = time.perf_counter() - t0
+
+    captured, legs, child_start = {}, [], []
+    orig_close = mig.HybridRuntime.close
+    orig_migrate = mig.MigrationEngine.migrate
+    orig_spawn = SubprocessEnv.__init__
+
+    def spawn(self, *args, **kw):
+        """Time a child's start: spawn, imports, connect back, HELLO."""
+        t0 = time.perf_counter()
+        orig_spawn(self, *args, **kw)
+        child_start.append(time.perf_counter() - t0)
+
+    def fetch(env, reducer, names):
+        ser, _, _, _ = env.peer.fetch_state(names=set(names), delta=False)
+        return reducer.deserialize(ser)
+
+    def close(self):
+        remote = self.envs["remote"]
+        if not isinstance(remote, SubprocessEnv):
+            raise AssertionError("socket mode did not spawn a child env")
+        reducer = self.engine.reducer
+        remote.peer.execute(CHILD_COUNTS)
+        got = {"child_launches":
+               fetch(remote, reducer, ["child_launches"])["child_launches"],
+               "local": self.envs["local"].state.ns, "env": remote}
+        if self.nb.name == "spacenet7-tiles":
+            got["edges_home"] = fetch(remote, reducer, ["edges"])["edges"]
+        captured[self.nb.name] = got
+        return orig_close(self)
+
+    def wire_total(src, dst) -> int:
+        """Bytes this process has sent and received on the child's socket."""
+        peer = getattr(src, "peer", None) or getattr(dst, "peer", None)
+        return peer.transport.bytes_sent + peer.transport.bytes_recv
+
+    def migrate(self, src, dst, *args, **kw):
+        before = wire_total(src, dst)
+        t0 = time.perf_counter()
+        res = orig_migrate(self, src, dst, *args, **kw)
+        legs.append({"src": res.src, "dst": res.dst,
+                     "names": list(res.names[:6]), "nbytes": res.nbytes,
+                     "wire_bytes": wire_total(src, dst) - before,
+                     "frames": res.wire_frames,
+                     "stream_wall_seconds": res.wall_seconds,
+                     "wall_seconds": time.perf_counter() - t0,
+                     "noop": res.noop})
+        return res
+    mig.HybridRuntime.close = close
+    mig.MigrationEngine.migrate = migrate
+    SubprocessEnv.__init__ = spawn
+
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    qk.reset_launches()
+    reports, walls, leg_ix = {}, {}, {}
+    try:
+        for nb, codec in runs:
+            t0 = time.perf_counter()
+            n0 = len(legs)
+            reports[nb], _ = run_notebook(str(nb), sessions=2, codec=codec,
+                                          policy="single", transport="socket",
+                                          device="cuda")
+            torch.cuda.synchronize()
+            walls[nb] = time.perf_counter() - t0
+            leg_ix[nb] = (n0, len(legs))
+    finally:
+        mig.HybridRuntime.close = orig_close
+        mig.MigrationEngine.migrate = orig_migrate
+        SubprocessEnv.__init__ = orig_spawn
+    launches = {**hk.LAUNCHES, **qk.LAUNCHES}
+    by_route = dict(hk.ROUTE_LAUNCHES)
+
+    # -- what came out -----------------------------------------------------
+    def placements(report) -> dict:
+        """Where each cell ran, from its decision note ("performance/single:
+        local ..." or "...: remote ..."); the note's modeled migration
+        seconds follow the bytes, which differ on the way home (the child
+        ships with its own codec)."""
+        return {cid: note.split(": ", 1)[1].split()[0]
+                for cid, note in report["decisions"].items()}
+
+    for nb, _ in runs:
+        a, b = reports[nb], loopback[nb]
+        if a["transport"] != "socket" or placements(a) != placements(b):
+            raise AssertionError(f"{nb.name}: socket decisions differ from "
+                                 f"the loopback run's: {a['decisions']} vs "
+                                 f"{b['decisions']}")
+        names = [[m["src"], m["dst"], m["names"]] for m in a["migration_log"]]
+        want = [[m["src"], m["dst"], m["names"]] for m in b["migration_log"]]
+        if names != want:
+            raise AssertionError(f"{nb.name}: socket migrations {names}, "
+                                 f"loopback {want}")
+    exit_codes = {nb.stem: captured[nb_name[nb]]["env"].proc.returncode
+                  for nb, _ in runs}
+    if any(code != 0 for code in exit_codes.values()):
+        raise AssertionError(f"a child did not exit 0 at BYE: {exit_codes}")
+    log = reports[main_nb]["migration_log"]
+    fwd = [m for m in log if m["dst"] == "remote" and not m["noop"]]
+    home = [m for m in log if m["dst"] == "local" and not m["noop"]]
+    if len(fwd) != 2 or fwd[0]["nbytes"] < 100 << 20 or not home:
+        raise AssertionError(f"expected two forward migrations, the first "
+                             f">= 100 MiB, and a return trip: {log}")
+    if "edges" not in fwd[0]["names"] or fwd[1]["names"] != ["edges"] or \
+            not CHUNK <= fwd[1]["nbytes"] <= CHUNK + (64 << 10):
+        raise AssertionError(f"re-migration after a one-element change "
+                             f"shipped {fwd[1]}, expected the edge maps' "
+                             f"one dirty {CHUNK} B chunk")
+    main = captured["spacenet7-tiles"]
+    if len(main["edges_home"]) != N_KEEP:
+        raise AssertionError("the child does not hold the 32 edge maps")
+    for a, b in zip(main["local"]["edges"], main["edges_home"]):
+        if not np.array_equal(a.cpu().numpy(), np.asarray(b)):
+            raise AssertionError("an edge map read back from the child "
+                                 "differs from what left")
+    if not np.isfinite(main["local"]["summary"]):
+        raise AssertionError("summary is not finite")
+    quant = captured["quant-field"]
+    qlog = reports[quant_nb]["migration_log"]
+    if not any("field" in m["names"] for m in qlog if m["dst"] == "local"):
+        raise AssertionError(f"the quant8 field did not come home: {qlog}")
+    q, sc = qk.quantize_kernel(source_field().reshape(-1, 1024))
+    want = qk.dequantize_kernel(q, sc, torch.float32).reshape(-1).cpu().numpy()
+    got = np.asarray(quant["local"]["field"])
+    if got.dtype != np.float32 or not np.array_equal(got, want):
+        raise AssertionError("the quant8 field that came home differs from "
+                             "a local quantize/dequantize round trip")
+    child = {k: main["child_launches"].get(k, 0)
+             + quant["child_launches"].get(k, 0) for k in launches}
+    for name in ("block_hash_fold", "block_hash", "block_hash_compare",
+                 "quantize"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the parent never launched {name} in the "
+                                 f"socket runs: {launches}")
+    for name in ("block_hash_fold", "dequantize"):
+        if child[name] <= 0:
+            raise AssertionError(f"the child never launched {name}: {child}")
+
+    def leg_rows(nb):
+        i, j = leg_ix[nb]
+        return [leg for leg in legs[i:j] if not leg["noop"]]
+    emit({"phase": "socket", "device": reports[main_nb]["device"],
+          "card": card_line(),
+          "wall_seconds": {nb.stem: walls[nb] for nb, _ in runs},
+          "loopback_wall_seconds": loop_walls,
+          "child_start_seconds": child_start,
+          "legs": {nb.stem: leg_rows(nb) for nb, _ in runs},
+          "wire_bytes": {nb.stem: sum(leg["wire_bytes"] for leg in legs[
+              leg_ix[nb][0]:leg_ix[nb][1]]) for nb, _ in runs},
+          "migrated_bytes": {nb.stem: reports[nb]["migrated_bytes"]
+                             for nb, _ in runs},
+          "wire_frames": {nb.stem: reports[nb]["wire_frames"]
+                          for nb, _ in runs},
+          "placements": {nb.stem: placements(reports[nb]) for nb, _ in runs},
+          "decision_notes_differing_from_loopback": {
+              nb.stem: {c: [reports[nb]["decisions"][c],
+                            loopback[nb]["decisions"][c]]
+                        for c in reports[nb]["decisions"]
+                        if reports[nb]["decisions"][c]
+                        != loopback[nb]["decisions"][c]} for nb, _ in runs},
+          "placements_equal_loopback": True, "names_bit_equal": True,
+          "child_exit_codes": exit_codes,
+          "launches_parent": launches, "launches_parent_by_route": by_route,
+          "launches_child": child,
+          "seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -1104,15 +1370,23 @@ def expected_launches(cfg, prompt: int) -> dict:
             "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
 
 
+# one prefill's launches, stated where the config alone decides them
+SERVE_LAUNCHES = {
+    "recurrentgemma-9b": {"flash_attention": 12, "ssd_scan": 0, "rglru_scan": 26},
+    "stablelm-12b": {"flash_attention": 40, "ssd_scan": 0, "rglru_scan": 0},
+}
+
+
 def phase_serve() -> dict:
     """The LM serving path on the card through ``serve_lm``: full yi-6b,
-    full mamba2-370m and full recurrentgemma-9b with seeded bf16 weights.
-    One prefill must launch each layer's kernel once (decode runs plain
-    PyTorch): flash 32 (yi-6b); SSD 48 (mamba2); RG-LRU 26 and flash 12
-    (recurrentgemma, whose prompt of 2048 equals its window, so its
-    attention layers run full causal attention through flash).  Every id
+    full mamba2-370m, full recurrentgemma-9b and full stablelm-12b with
+    seeded bf16 weights.  One prefill must launch each layer's kernel once
+    (decode runs plain PyTorch): flash 32 (yi-6b); SSD 48 (mamba2); RG-LRU
+    26 and flash 12 (recurrentgemma, whose prompt of 2048 equals its
+    window, so its attention layers run full causal attention through
+    flash); flash 40 at head dim 160 (stablelm-12b).  Every id
     must lie in [0, padded_vocab).  Returns the launches of the kernels,
-    summed over the three models."""
+    summed over the four models."""
     import gc
 
     import numpy as np
@@ -1126,11 +1400,11 @@ def phase_serve() -> dict:
     launches = {}
     for arch, batch, prompt in (("yi-6b", YI_BATCH, YI_PROMPT),
                                 ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT),
-                                ("recurrentgemma-9b", RG_BATCH, RG_PROMPT)):
+                                ("recurrentgemma-9b", RG_BATCH, RG_PROMPT),
+                                ("stablelm-12b", SL_BATCH, SL_PROMPT)):
         cfg = get_config(arch)
         want = expected_launches(cfg, prompt)
-        if arch == "recurrentgemma-9b" and want != {
-                "flash_attention": 12, "ssd_scan": 0, "rglru_scan": 26}:
+        if arch in SERVE_LAUNCHES and want != SERVE_LAUNCHES[arch]:
             raise AssertionError(f"{arch}: expected launches {want}")
         gc.collect()
         torch.cuda.empty_cache()
@@ -1177,27 +1451,42 @@ SERVE_AGREE = (("yi-6b", REDUCED_PROMPT, 1e-4),
                # 48: S > window (32) but not a multiple: full causal, flash
                ("recurrentgemma-9b", REDUCED_PROMPT, 1e-4),
                # 64: a multiple of the window: plain banded attention
-               ("recurrentgemma-9b", 64, 1e-4))
+               ("recurrentgemma-9b", 64, 1e-4),
+               ("stablelm-12b", REDUCED_PROMPT, 1e-4),
+               # stablelm-12b at its own head dim, 160: flash's f32 route
+               ("stablelm-12b-hd160", REDUCED_PROMPT, 1e-4))
+# reduced configs beyond ``get_config(arch, reduced=True)``: the tests'
+# stablelm-12b at head dim 160 (tests/test_torch_model.py, STABLELM_HD160)
+REDUCED_VARIANTS = {"stablelm-12b-hd160": ("stablelm-12b", {
+    "d_model": 320, "num_heads": 2, "num_kv_heads": 2, "num_layers": 2})}
+
+
+def reduced_config(name: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    arch, overrides = REDUCED_VARIANTS.get(name, (name, {}))
+    return dataclasses.replace(get_config(arch, reduced=True), **overrides)
 
 
 def phase_serve_agree() -> None:
-    """The reduced yi-6b, mamba2-370m and recurrentgemma-9b (at prompts 48
-    and 64) in f32 through ``serve_lm`` on the card (the kernels) and on the
-    CPU (their plain versions, which the CPU tests hold to the JAX
-    reference), with the same weights: logits within the model tolerances,
+    """The reduced yi-6b, mamba2-370m, recurrentgemma-9b (at prompts 48
+    and 64) and stablelm-12b (at head dim 16, and at its own 160) in f32
+    through ``serve_lm`` on the card (the kernels) and on the CPU (their
+    plain versions, which the CPU tests hold to the JAX reference), with
+    the same weights: logits within the model tolerances,
     equal greedy ids, and on the card exactly the expected launches (none
     on the CPU)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models import LM
 
     t_phase = time.perf_counter()
     errs, ran = {}, {}
     for arch, prompt, tol in SERVE_AGREE:
-        cfg = get_config(arch, reduced=True)
+        cfg = reduced_config(arch)
         params = LM(cfg, device="cpu").init(SEED, torch.float32)
         out = {}
         for dev in ("cuda", "cpu"):
@@ -1251,12 +1540,15 @@ def main() -> int:
         emit({"kernels": rows})
         return 0
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        launches = phase_session(Path(tmp))
+        by_path = {"session": phase_session(Path(tmp))}
         phase_agree(Path(tmp))
-    launches.update(phase_serve())
+        by_path["socket"] = phase_socket(Path(tmp))
+    by_path["serve"] = phase_serve()
     phase_serve_agree()
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()
+                                 if r["name"] in n}
+        r["launches"] = sum(r["launches_by_path"].values())
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

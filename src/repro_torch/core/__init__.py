@@ -1,7 +1,5 @@
 # The paper's primary contribution: context-aware execution migration --
-# generalized to an N-environment placement fabric.  This package holds the
-# single-session slice of the PyTorch port; the events/simulator, fleet,
-# gateway, replica and transport planes are not ported yet.
+# generalized to an N-environment placement fabric.
 from repro_torch.core.analyzer import (
     BlockPolicy, CostMatrixPolicy, Decision, HorizonPolicy, KnowledgePolicy,
     MigrationAnalyzer, PerfModel, PlacementPolicy, SingleCellPolicy,
@@ -14,6 +12,7 @@ from repro_torch.core.chunkstore import (
 from repro_torch.core.context import (
     ContextDetector, get_sequences, sequence_stats,
 )
+from repro_torch.core.events import Event, EventLoop
 from repro_torch.core.fabric import (
     LIFECYCLE, EnvironmentRegistry, ExecutionEnvironment, Link,
 )
@@ -30,8 +29,19 @@ from repro_torch.core.notebook import Cell, Notebook
 from repro_torch.core.reducer import (
     SerializationFailure, SerializedState, StateReducer,
 )
+from repro_torch.core.replica import RaceTicket, SessionReplicaSet
 from repro_torch.core.simclock import SimClock, WallClock
+from repro_torch.core.simulator import (
+    TRACES, Trace, cell_frequency, policy_grid, simulate,
+    synthetic_loops_trace, tf_guide_trace,
+)
 from repro_torch.core.state import ExecutionState
+from repro_torch.core.transport import (
+    TRANSPORTS, DigestMirrorStore, LoopbackTransport, MigrationPeer,
+    MuxEnvServer, MuxPeer, MuxStream, SocketTransport, SubprocessEnv,
+    TokenBucket, Transport, WireReceiver, attach_peer,
+)
+from repro_torch.core.wire import Frame, FrameDecoder, WireError
 
 __all__ = [
     "BlockPolicy", "CostMatrixPolicy", "Decision", "HorizonPolicy",
@@ -40,7 +50,7 @@ __all__ = [
     "fit_linear", "intersection", "substitute_kwarg", "CHUNK_BYTES",
     "DiskChunkStore", "MemoryChunkStore", "array_chunk_digests",
     "digest_bytes", "split_chunks", "ContextDetector",
-    "get_sequences", "sequence_stats", "LIFECYCLE",
+    "get_sequences", "sequence_stats", "Event", "EventLoop", "LIFECYCLE",
     "EnvironmentRegistry", "ExecutionEnvironment", "Link",
     "MODELS", "ConfidenceGate", "EnsembleModel", "FrequencyModel",
     "InteractionModel", "MarkovModel", "RecencyModel", "make_model",
@@ -49,5 +59,12 @@ __all__ = [
     "MigrationResult",
     "PipelinedMigrationEngine", "Cell", "Notebook", "SerializationFailure",
     "SerializedState", "StateReducer", "SimClock",
-    "WallClock", "ExecutionState",
+    "WallClock", "Trace",
+    "TRACES", "cell_frequency", "policy_grid", "simulate",
+    "synthetic_loops_trace", "tf_guide_trace", "ExecutionState",
+    "TRANSPORTS", "DigestMirrorStore", "LoopbackTransport", "MigrationPeer",
+    "MuxEnvServer", "MuxPeer", "MuxStream",
+    "SocketTransport", "SubprocessEnv", "TokenBucket", "Transport",
+    "WireReceiver", "attach_peer", "Frame", "FrameDecoder", "WireError",
+    "RaceTicket", "SessionReplicaSet",
 ]

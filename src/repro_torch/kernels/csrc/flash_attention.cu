@@ -23,10 +23,12 @@
 // shared memory, rows padded by 16 bytes so every ldmatrix phase hits 8 distinct 16-byte bank
 // groups (ldmatrix for K in Q.K^T, ldmatrix.trans for V in P.V), and arrive by cp.async in two
 // stages: tile j+1 is in flight while tile j is used.  At hd <= 128 the Q tile is read once into
-// A fragments held in registers (its shared memory is then the second stage); at hd 256
-// (recurrentgemma's MQA heads) the 16x256 f32 output accumulator alone takes 128 registers a
-// thread, so Q stays in shared memory and is re-read by ldmatrix, and kv tiles are 32 rows, so
-// that ptxas spills nothing.  The online softmax runs in registers in the exp2 domain (log2(e)
+// A fragments held in registers (its shared memory is then the second stage).  Above that Q
+// stays in shared memory and is re-read by ldmatrix: at hd 160 (stablelm-12b) the 16x160 f32
+// output accumulator takes 80 registers a thread and kv tiles stay 64 rows (107,520 bytes of
+// shared memory, two blocks an SM; the 336-byte row stride puts the 8 rows of an ldmatrix 20
+// words apart, conflict-free); at hd 256 (recurrentgemma's MQA heads) the accumulator alone
+// takes 128 registers, so kv tiles are 32 rows, so that ptxas spills nothing.  The online softmax runs in registers in the exp2 domain (log2(e)
 // folded into the scale): the row max is a shuffle over the four lanes that share a row, P is
 // rounded to bf16 straight from the score accumulator into the A fragments of P.V (no shared
 // memory round trip), and l is summed from the same rounded P, so the output stays a convex
@@ -463,7 +465,7 @@ bool bad_sizes(long long H, long long KV) { return KV <= 0 || H % KV != 0; }
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  q/o: (B,H,S,hd); k/v: (B,KV,S,hd); one dtype for all
-// four, contiguous (the wrapper checks).  hd in {16, 32, 64, 128, 256}.  Returns a cudaError_t.
+// four, contiguous (the wrapper checks).  hd in {16, 32, 64, 128, 160, 256}.  Returns a cudaError_t.
 extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o, long long B,
@@ -477,6 +479,7 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o, lo
     case 32: return launch_f32<32>(q, k, v, o, B, H, KV, S, causal, st);
     case 64: return launch_f32<64>(q, k, v, o, B, H, KV, S, causal, st);
     case 128: return launch_f32<128>(q, k, v, o, B, H, KV, S, causal, st);
+    case 160: return launch_f32<160>(q, k, v, o, B, H, KV, S, causal, st);
     case 256: return launch_f32<256>(q, k, v, o, B, H, KV, S, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -493,6 +496,7 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, l
     case 32: return launch_bf16<32>(q, k, v, o, B, H, KV, S, causal, st);
     case 64: return launch_bf16<64>(q, k, v, o, B, H, KV, S, causal, st);
     case 128: return launch_bf16<128>(q, k, v, o, B, H, KV, S, causal, st);
+    case 160: return launch_bf16<160>(q, k, v, o, B, H, KV, S, causal, st);
     case 256: return launch_bf16<256>(q, k, v, o, B, H, KV, S, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

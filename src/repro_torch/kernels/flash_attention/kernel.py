@@ -14,7 +14,7 @@ from repro_torch.kernels import _build
 
 LAUNCHES = {"flash_attention": 0}
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 _ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 

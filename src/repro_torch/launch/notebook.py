@@ -6,18 +6,22 @@
         [--bandwidth 1e9] [--latency 0.5] [--codec zlib] [--report out.json] \\
         [--env tpu-mesh:40:1] [--link local:tpu-mesh:1e8:1.0] [--pipeline] \\
         [--price remote:3.0] [--egress remote:local:0.09] [--slo 30] \\
-        [--device cuda|cpu]
+        [--transport loopback|socket] [--device cuda|cpu]
 
 The PyTorch counterpart of ``repro.launch.notebook``, single-session part:
 the paper's local/remote dyad (plus any ``--env``/``--link`` extras) with
-in-process loopback movement.  State digests, chunk keys and the
-``quant8+zstd`` codec run on ``--device`` (default ``cuda``: the
-hand-written kernels; ``cpu``: their plain PyTorch versions).  Asking for
-``cuda`` without a card is an error.
+in-process loopback movement.  ``--transport socket`` is the two-process
+demo: the remote env runs as a child Python process
+(``repro_torch.core.remote_worker``) and every migration streams wire
+frames over TCP; knowledge probing is then off, as in the reference.
+State digests, chunk keys and the ``quant8+zstd`` codec run on
+``--device`` (default ``cuda``: the hand-written kernels; ``cpu``: their
+plain PyTorch versions), in the child too.  Asking for ``cuda`` without a
+card is an error.
 
-The fleet, socket-transport, replication, replica and hazard options of the
-reference need modules that are not ported yet; giving one of them is an
-argparse error that names it.
+The fleet, replication, replica and hazard options of the reference need
+modules that are not ported yet; giving one of them is an argparse error
+that names it.
 
 Cells execute for real (exec against the session namespace); timing follows
 the paper's forced-speedup protocol when cells carry a
@@ -120,15 +124,25 @@ def parse_egress_spec(spec: str) -> tuple[str, str, float]:
 def build_registry(*, remote_speedup: float = 10.0, bandwidth: float = 1e9,
                    latency: float = 0.5, extra_envs=(), links=(),
                    cold_start: float = 5.0, idle_timeout: float = 60.0,
-                   prices=(), egress=()) -> EnvironmentRegistry:
-    """Two-env loopback default plus any ``name:speedup[:capacity[:down]]``
-    extras and ``a:b:bandwidth:latency`` link overrides, with optional
-    ``env:$/h`` prices and ``a:b:$/GB`` egress prices."""
+                   transport: str = "loopback", prices=(), egress=(),
+                   device="cuda") -> EnvironmentRegistry:
+    """Two-env default plus any ``name:speedup[:capacity[:down]]`` extras
+    and ``a:b:bandwidth:latency`` link overrides, with optional ``env:$/h``
+    prices and ``a:b:$/GB`` egress prices.  ``transport="socket"`` makes
+    the remote env a child Python process (``SubprocessEnv``) whose reducer
+    runs on ``device``; every migration to or from it streams wire frames
+    over TCP."""
     reg = EnvironmentRegistry(default_bandwidth=bandwidth,
                               default_latency=latency)
     reg.register(ExecutionEnvironment("local"), home=True, capacity=8)
-    reg.register(ExecutionEnvironment("remote", speedup=remote_speedup),
-                 capacity=4)
+    if transport == "socket":
+        from repro_torch.core.transport import SubprocessEnv
+        reg.register(SubprocessEnv("remote", speedup=remote_speedup,
+                                   device=device),
+                     capacity=4)
+    else:
+        reg.register(ExecutionEnvironment("remote", speedup=remote_speedup),
+                     capacity=4)
     for spec in extra_envs:
         name, speedup, cap, status = parse_env_spec(spec)
         if name in reg:
@@ -173,9 +187,11 @@ def run_notebook(path: str, *, sessions: int = 3, remote_speedup: float = 10.0,
                  codec: str = "zlib", extra_envs=(), links=(),
                  pipeline: bool = False, model: str | None = None,
                  prices=(), egress=(), slo: float | None = None,
+                 transport: str = "loopback",
                  device="cuda") -> tuple[dict, Notebook]:
     """The notebook at ``path`` run ``sessions`` times over in one session;
-    returns ``(report, annotated notebook)``.
+    returns ``(report, annotated notebook)``.  ``transport="socket"`` runs
+    the remote env in a child process (see :func:`build_registry`).
 
     The report carries the reference's single-session keys plus the
     reducer's ``device``, the chunks each env's store holds at the end
@@ -187,22 +203,32 @@ def run_notebook(path: str, *, sessions: int = 3, remote_speedup: float = 10.0,
     # dollars under the SLO
     objective = "dollars" if (prices or egress or slo is not None) \
         else "seconds"
+    if transport == "socket":
+        # Algorithm-2 probing snapshots the env namespace, which for a
+        # subprocess env lives in the child: knowledge probing stays off
+        use_knowledge = False
+    reducer = StateReducer(codec=codec, device=device)
     registry = build_registry(remote_speedup=remote_speedup,
                               bandwidth=bandwidth, latency=latency,
                               extra_envs=extra_envs, links=links,
-                              prices=prices, egress=egress)
+                              transport=transport, prices=prices,
+                              egress=egress, device=device)
     code = [c for c in nb.cells if c.cell_type == "code"]
-    rt = HybridRuntime(
-        nb, registry=registry,
-        reducer=StateReducer(codec=codec, device=device),
-        policy=policy, use_knowledge=use_knowledge, pipeline=pipeline,
-        model=model, objective=objective, slo=slo)
+    rt = None
     try:
+        rt = HybridRuntime(
+            nb, registry=registry, reducer=reducer,
+            policy=policy, use_knowledge=use_knowledge, pipeline=pipeline,
+            model=model, objective=objective, slo=slo)
         for _ in range(sessions):
             for cell in code:
                 rt.run_cell(cell.cell_id)
     finally:
-        rt.close()
+        if rt is not None:
+            rt.close()
+        for env in registry.envs().values():
+            if hasattr(env, "close"):      # tear down subprocess envs
+                env.close()
 
     local_only = sessions * sum(
         c.cost if c.cost is not None else 0.0 for c in code)
@@ -218,7 +244,7 @@ def run_notebook(path: str, *, sessions: int = 3, remote_speedup: float = 10.0,
         "model": rt.context.model.name,
         "migrations": rt.migrations,
         "migrated_bytes": sum(m.nbytes for m in rt.engine.log),
-        "transport": "loopback",
+        "transport": transport,
         "wire_frames": sum(m.wire_frames for m in rt.engine.log),
         "transfer_wall_seconds": sum(m.wall_seconds for m in rt.engine.log),
         "prefetch_hits": getattr(rt.engine, "prefetch_hits", 0),
@@ -262,12 +288,13 @@ _NOT_PORTED = {
     "--recovery": "the fleet scheduler",
     "--checkpoint-interval": "the fleet scheduler",
     "--autoscale": "the fleet scheduler",
-    "--transport": "the wire/transport plane",
     "--replicate": "the fleet scheduler",
     "--trickle-rate": "the fleet scheduler",
     "--liveness": "the fleet scheduler",
-    "--replicas": "the replica plane",
-    "--race": "the replica plane",
+    "--replicas": "the fleet scheduler (follower convergence runs on its "
+                  "event loop)",
+    "--race": "the fleet scheduler (races run against --replicas "
+              "followers)",
     "--hazard": "the fleet scheduler",
 }
 
@@ -310,10 +337,16 @@ def main(argv=None):
                     help="cost plane: per-GB egress price on a directed link")
     ap.add_argument("--slo", type=float, default=None, metavar="SECONDS",
                     help="cost plane: per-cell latency SLO")
+    ap.add_argument("--transport", choices=["loopback", "socket"],
+                    default="loopback",
+                    help="socket = two-process demo: the remote env is a "
+                         "child Python process and migrations stream wire "
+                         "frames over TCP (knowledge probing off)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="where digests, chunk keys and quantization run: "
-                         "cuda = the hand-written kernels (default), cpu = "
-                         "their plain PyTorch versions")
+                    help="where digests, chunk keys and quantization run, "
+                         "in this process and in a socket child: cuda = "
+                         "the hand-written kernels (default), cpu = their "
+                         "plain PyTorch versions")
     ap.add_argument("--report", default=None)
     ap.add_argument("--write-annotated", default=None,
                     help="write the notebook back with decision annotations")
@@ -341,7 +374,7 @@ def main(argv=None):
         latency=args.latency, codec=args.codec, extra_envs=args.env,
         links=args.link, pipeline=args.pipeline, model=args.model,
         prices=args.price, egress=args.egress, slo=args.slo,
-        device=args.device)
+        transport=args.transport, device=args.device)
 
     print(json.dumps({k: v for k, v in report.items()
                       if k not in ("decisions", "migration_log")}, indent=2))

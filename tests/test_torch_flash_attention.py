@@ -42,6 +42,8 @@ def _f32(a):
     (4, 4, 2, 48, 16, True),       # the reduced yi-6b's prefill: S=48, hd=16
     (4, 4, 1, 48, 16, True),       # the reduced recurrentgemma's: MQA
     (1, 4, 1, 128, 256, True),     # recurrentgemma's head dim, 256
+    (2, 4, 2, 128, 160, True),     # stablelm-12b's head dim, 160
+    (1, 2, 2, 64, 160, False),     # hd 160, full attention
 ])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_plain_version_matches_the_reference(B, H, KV, S, hd, causal, dtype):
@@ -125,6 +127,7 @@ def _plain_f32(q, k, v, causal):
 @pytest.mark.parametrize("B,H,KV,S,hd", [
     (1, 8, 1, 1024, 128),      # GQA 8:1 at yi-6b's head dim
     (1, 4, 1, 1024, 256),      # MQA at recurrentgemma's head dim
+    (1, 8, 2, 512, 160),       # GQA 4:1 at stablelm-12b's head dim
 ])
 def test_tensor_core_rounding_matches_the_reference(B, H, KV, S, hd):
     """P rounded to bf16 (the design's one new rounding) stays within the
@@ -148,6 +151,8 @@ def test_tensor_core_rounding_matches_the_reference(B, H, KV, S, hd):
     (2, 16, 1, 17, 256, True),     # under one tile, H/KV = 16
     (1, 4, 2, 200, 128, False),    # ragged, full attention
     (1, 4, 1, 97, 256, True),      # ragged against the 32-row kv tile
+    (2, 4, 2, 17, 160, True),      # hd 160 under one tile, H/KV = 2
+    (1, 4, 2, 97, 160, False),     # hd 160 ragged against the 64-row tiles
 ])
 def test_tensor_core_rounding_on_the_smoke_edges(B, H, KV, S, hd, causal):
     """The emulation at chip_smoke.py's edge shapes, within its tolerance of

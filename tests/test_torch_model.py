@@ -45,7 +45,12 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import attention, layers  # noqa: E402
 
 PROMPT, CACHE, STEPS = 48, 56, 4
-F32_TOL = {"yi-6b": 1e-4, "demo-100m": 1e-4, "mamba2-370m": 1e-3}
+F32_TOL = {"yi-6b": 1e-4, "demo-100m": 1e-4, "mamba2-370m": 1e-3,
+           "stablelm-12b": 1e-4, "phi3-medium-14b": 1e-4, "minicpm-2b": 1e-4}
+# stablelm-12b at its own head dim, 160 (d_model 5120 / 32 heads), which
+# every other reduced config (head dim 16) misses
+STABLELM_HD160 = {"d_model": 320, "num_heads": 2, "num_kv_heads": 2,
+                  "num_layers": 2}
 BF16_TOL = 5e-2
 HYBRID = "recurrentgemma-9b"
 HYBRID_BF16_CACHE_TOL = {3: 5e-2, 5: 1e-1}
@@ -57,11 +62,13 @@ def _f32(a):
     return np.asarray(a, np.float32)
 
 
-def _pair(arch, dtype, num_layers=None, cache_len=CACHE):
+def _pair(arch, dtype, num_layers=None, cache_len=CACHE, overrides=None):
     rcfg, cfg = ref_config(arch, reduced=True), get_config(arch, reduced=True)
+    overrides = dict(overrides or {})
     if num_layers is not None:
-        rcfg = dataclasses.replace(rcfg, num_layers=num_layers)
-        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+        overrides["num_layers"] = num_layers
+    rcfg = dataclasses.replace(rcfg, **overrides)
+    cfg = dataclasses.replace(cfg, **overrides)
     ref_lm = RefLM(rcfg, max_seq=cache_len)
     params = ref_lm.init(jax.random.PRNGKey(0), dtype)
     lm = LM(cfg, max_seq=cache_len, device="cpu")
@@ -85,9 +92,9 @@ def _cache_close(got, want, tol, path="cache"):
 
 
 def _run(arch, dtype, tol, check_ids, *, prompt=PROMPT, steps=STEPS,
-         num_layers=None, cache_tol=None):
+         num_layers=None, cache_tol=None, overrides=None):
     cache_len = CACHE if prompt + steps <= CACHE else prompt + steps
-    ref_lm, params, lm = _pair(arch, dtype, num_layers, cache_len)
+    ref_lm, params, lm = _pair(arch, dtype, num_layers, cache_len, overrides)
     cache_tol = cache_tol or tol
     rng = np.random.default_rng(3)
     toks = rng.integers(0, lm.cfg.vocab_size, (2, prompt)).astype(np.int32)
@@ -125,6 +132,18 @@ def test_prefill_and_decode_match_the_reference_f32(arch):
 def test_prefill_and_decode_match_the_reference_bf16(arch):
     """bf16 weights: the port decodes the reference's tokens (no id check)."""
     _run(arch, jnp.bfloat16, BF16_TOL, check_ids=False)
+
+
+@pytest.mark.parametrize("dtype,tol,check_ids", [
+    (jnp.float32, 1e-4, True), (jnp.bfloat16, BF16_TOL, False)])
+def test_stablelm_at_head_dim_160_matches_the_reference(dtype, tol, check_ids):
+    """stablelm-12b's head dim (160) and partial rotary (40 of 160 dims)
+    through the port's plain attention path (the flash kernel's plain
+    version on the CPU) against the reference's XLA attention."""
+    cfg = dataclasses.replace(get_config("stablelm-12b", reduced=True),
+                              **STABLELM_HD160)
+    assert cfg.resolved_head_dim == 160
+    _run("stablelm-12b", dtype, tol, check_ids, overrides=STABLELM_HD160)
 
 
 def _hybrid_steps(prompt):

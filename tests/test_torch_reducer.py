@@ -7,6 +7,7 @@ stand where the reference holds jax arrays: 32-bit and narrower tensors
 against equal jax arrays, 64-bit and complex tensors against equal numpy
 arrays (jax holds no 64-bit arrays with x64 off).
 """
+import dataclasses
 from collections import OrderedDict, defaultdict, namedtuple
 
 import numpy as np
@@ -342,6 +343,60 @@ def test_digest_many_of_containers_matches_the_reference(kind):
     assert pr.digest_many(port_ns) == rr.digest_many(ref_ns)
     for n in port_ns:
         assert pr.digest(port_ns[n]) == rr.digest(ref_ns[n]), n
+
+
+@dataclasses.dataclass
+class Params:
+    """An unregistered dataclass: a leaf in jax and in the port."""
+    w: np.ndarray
+    b: np.ndarray
+    name: str = "layer"
+
+
+class Holder:
+    """A plain class instance: a leaf in both packages."""
+
+    def __init__(self, w, b):
+        self.w, self.b = w, b
+
+
+def _leaf_objects():
+    rng = np.random.default_rng(8)
+    w = rng.standard_normal((40, 30)).astype(np.float32)
+    b = rng.integers(0, 9, 30).astype(np.int32)
+    return {"params": Params(w, b), "holder": Holder(w, b),
+            "nested": {"p": [Params(w, b)], "h": (Holder(b, w),)}}
+
+
+def test_dataclass_and_plain_instance_digest_as_in_the_reference():
+    """Neither package makes a node of an unregistered dataclass or of a
+    plain instance: each is one pickled leaf, with the same digest."""
+    rr, pr = _reducers()
+    ns = _leaf_objects()
+    assert pr.digest_many(ns) == rr.digest_many(ns)
+    for n, obj in ns.items():
+        assert pr.digest(obj) == rr.digest(obj), n
+        assert _tree_flatten(obj)[1] == \
+            str(jax.tree_util.tree_flatten(obj)[1]), n
+
+
+def test_a_registered_dataclass_stays_a_leaf_in_the_port():
+    """Documented difference (ROADMAP queue C): jax makes a node of a
+    dataclass registered in its pytree registry, which the port cannot read
+    without importing jax; the port digests it as the leaf it would be
+    unregistered."""
+    @dataclasses.dataclass
+    class Registered:
+        w: np.ndarray
+        b: np.ndarray
+
+    jax.tree_util.register_dataclass(Registered, data_fields=["w", "b"],
+                                     meta_fields=[])
+    w, b = np.arange(6, dtype=np.float32), np.ones(3, np.int32)
+    obj = Registered(w, b)
+    assert len(jax.tree_util.tree_leaves(obj)) == 2       # a node in jax
+    leaves, treedef = _tree_flatten(obj)
+    assert leaves == [obj] and treedef == "PyTreeDef(*)"  # a leaf here
 
 
 def test_cuda_without_a_card_raises():

@@ -217,7 +217,7 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     assert len(rep["migration_log"]) == rep["migrations"]
 
 
-@pytest.mark.parametrize("flag", [["--fleet", "2"], ["--transport", "socket"],
+@pytest.mark.parametrize("flag", [["--fleet", "2"], ["--race"],
                                   ["--replicas", "1"], ["--autoscale"]])
 def test_cli_names_the_options_not_ported_yet(tmp_path, capsys, flag):
     with pytest.raises(SystemExit) as e:
