@@ -69,7 +69,27 @@ Phases, each printing one JSON line:
             quant8 field equal to a local quantize/dequantize round trip; the
             parent's and the child's kernel counts rise; the child exits 0
             at BYE; prints each leg's wall time and bytes on the wire;
-8. serve:   the LM serving path through ``repro_torch.launch.serve.serve_lm`` at
+8. fleet:   the fleet scheduler through ``run_notebook(fleet=4)``: four
+            spacenet7-tiles sessions (two passes each under the single-cell
+            policy, Poisson arrivals at 0.2/s, think time 5 s, seed 0) over
+            one fabric and one chunk store; every session completes with
+            its reducer on the card, the dataset crosses to the remote env
+            once and each other session ships under 1 % of what the first
+            shipped; the quant8 field as a two-session fleet (quantize and
+            dequantize must launch); bench_replica's four failover arms at
+            5,000,000 elements (promotion must beat checkpoint-restore on
+            recovery overhead by more than 10x), held against the same arms
+            on the CPU; and the four sessions at 64x64 tiles with a replica
+            each on the card and on the CPU (placements, bytes, chunk keys
+            and counts equal, modeled seconds within rtol 1e-12), the
+            card's hash launches traced with torch.profiler;
+9. gateway: bench_gateway's 10,000-session attach storm through one
+            ``GatewayService(device="cuda")`` (peak concurrency 10,000, no
+            errors), the server's wire storm (``serve_gateway(0,
+            stress=2000)``) and notebook fleet (``serve_notebook_fleet(8)``),
+            and a 300-session storm on the card and on the CPU with every
+            sim-derived field of the report equal;
+10. serve:  the LM serving path through ``repro_torch.launch.serve.serve_lm`` at
             full yi-6b (batch 4, prompt 2048), full mamba2-370m (batch 8,
             prompt 2000), full recurrentgemma-9b (batch 4, prompt 2048, its
             local window) and full stablelm-12b (batch 4, prompt 2048),
@@ -80,14 +100,15 @@ Phases, each printing one JSON line:
             (stablelm-12b), once per layer; every id must lie in [0,
             padded_vocab); prints prefill seconds, decode tokens/s and the
             peak memory of prefill and decode;
-9. serve_agree: the reduced yi-6b, mamba2-370m, recurrentgemma-9b
+11. serve_agree: the reduced yi-6b, mamba2-370m, recurrentgemma-9b
             (prompts 48, full causal attention through flash, and 64, banded
             attention) and stablelm-12b (hd 16, and hd 160) in f32 on the
             card and on the CPU with the same weights: logits within 1e-4
             (dense, hybrid) and 1e-3 (mamba2), equal greedy ids.
 
 Then the ``kernels`` line (each kernel's launches summed over the session,
-socket and serve runs, and split by run in ``launches_by_path``), and last
+socket, fleet, gateway and serve runs, and split by run in
+``launches_by_path``), and last
 ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -1339,6 +1360,417 @@ def phase_agree(tmp: Path) -> None:
           "equal": True, "seconds": time.perf_counter() - t_phase})
 
 
+# ----------------------------------------------------------------------
+# the fleet and gateway layer
+# ----------------------------------------------------------------------
+
+FLEET_SESSIONS = 4
+FLEET_KW = {"arrivals": 0.2, "think_time": 5.0, "seed": 0}
+SMALL_TILE = 64
+
+# benchmarks/bench_replica.py:34-75: the failover arms (FAIL_AT 29.9,
+# CKPT_INTERVAL 15.0, BEAT_INTERVAL 0.2, five cells, three envs)
+REPLICA_ELEMS = 5_000_000
+FAIL_AT = 29.9
+CKPT_INTERVAL = 15.0
+BEAT_INTERVAL = 0.2
+REPLICA_CELLS = 5
+
+# benchmarks/bench_gateway.py:49-72, 75-91: the attach storm (COLD_START,
+# THINK_MEAN, GPU_CAPACITY, make_registry(n + 64), warm pool 64, two
+# tenants weighted 2:1, seed 11, rate n / 5)
+STORM_SESSIONS = 10_000
+STORM_SMALL = 300
+COLD_START = 5.0
+THINK_MEAN = 120.0
+GPU_CAPACITY = 256
+WIRE_STORM = 2000
+NOTEBOOK_FLEET = 8
+GATEWAY_WALL_FIELDS = ("decision_ms_p50", "decision_ms_p99")
+
+
+def same(a, b, path: str = "$") -> None:
+    """Equal, floats within rtol 1e-12; dataclasses by field."""
+    import dataclasses
+    import math
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            raise AssertionError(f"{path}: keys {a!r} vs {b!r}")
+        for k in a:
+            same(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            raise AssertionError(f"{path}: {a!r} vs {b!r}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{path}[{i}]")
+    elif isinstance(a, float) and isinstance(b, float):
+        if not (a == b or math.isclose(a, b, rel_tol=1e-12, abs_tol=0.0)):
+            raise AssertionError(f"{path}: {a!r} vs {b!r}")
+    elif a != b:
+        raise AssertionError(f"{path}: {a!r} vs {b!r}")
+
+
+def state_kernel_counts() -> dict:
+    from repro_torch.kernels.hash_delta import kernel as hk
+    from repro_torch.kernels.quant_blockwise import kernel as qk
+    return {**hk.LAUNCHES, **qk.LAUNCHES}
+
+
+def reset_state_kernels() -> None:
+    import torch
+
+    from repro_torch.kernels.hash_delta import kernel as hk
+    from repro_torch.kernels.hash_delta import ops as hops
+    from repro_torch.kernels.quant_blockwise import kernel as qk
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    qk.reset_launches()
+    hops.reset_host_syncs()
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in {*total, *more}}
+
+
+def forward_bytes(rep: dict) -> dict:
+    """Per session: the bytes its migrations to the remote env shipped plus
+    what its replica plane shipped there."""
+    return {sid: sum(m["nbytes"] for m in log
+                     if m["dst"] == "remote" and not m["noop"])
+            + s["replicated_bytes"]
+            for (sid, log), s in zip(rep["migration_logs"].items(),
+                                     rep["per_session"])}
+
+
+def fleet_placements(rep: dict) -> dict:
+    return {sid: [(m["src"], m["dst"], sorted(m["names"]), m["nbytes"])
+                  for m in log] for sid, log in rep["migration_logs"].items()}
+
+
+def replica_arm(mode, device, n_elems=REPLICA_ELEMS):
+    """One failover arm of bench_replica: ``mode`` None (no failure),
+    rerun, checkpoint or replica; every session's reducer on ``device``."""
+    from repro_torch.core import (EnvironmentRegistry, ExecutionEnvironment,
+                                  Notebook, SessionScheduler)
+    reg = EnvironmentRegistry(default_bandwidth=2e8, default_latency=0.3)
+    reg.register(ExecutionEnvironment("local"), home=True, capacity=8)
+    reg.register(ExecutionEnvironment("gpu-cloud", speedup=10.0), capacity=1)
+    reg.register(ExecutionEnvironment("gpu-standby", speedup=10.0),
+                 capacity=1)
+    sched = SessionScheduler(reg, beat_interval=BEAT_INTERVAL, device=device)
+    if mode == "replica":
+        sched.enable_replicas(2)
+        sched.enable_recovery("rerun")
+    elif mode is not None:
+        sched.enable_recovery(mode, interval=CKPT_INTERVAL)
+    if mode is not None:
+        sched.inject_failure("gpu-cloud", at=FAIL_AT, recover_after=10.0)
+    nb = Notebook(f"replica-session-{n_elems}-{mode}")
+    nb.add_cell("import numpy as np\n"
+                f"data = np.arange({n_elems}, dtype=np.float64)", cost=4.0)
+    nb.add_cell("model = float((data ** 2).sum())", cost=80.0)
+    nb.add_cell("model2 = model + float(data.sum())", cost=80.0)
+    nb.add_cell("model3 = model2 * 0.5 + float(data[-1])", cost=80.0)
+    nb.add_cell("out = model3 / 2", cost=5.0)
+    sched.add_notebook(nb, policy="cost", use_knowledge=False,
+                       think=[1.0] * REPLICA_CELLS)
+    rep = sched.run()
+    if any(s.runtime.reducer.device.type != device for s in sched._sessions):
+        raise AssertionError(f"a failover session's reducer left {device}")
+    return rep
+
+
+def small_tiles_notebook(tmp: Path) -> Path:
+    """The spacenet7-tiles notebook at 64x64 tiles (cells still on the
+    card): the card-against-CPU run of the fleet."""
+    setup = SETUP.replace(f"({TILE}, {TILE}, 3)",
+                          f"({SMALL_TILE}, {SMALL_TILE}, 3)").replace(
+        "1 << 20, 3 << 20", "1000, 3000")
+    path = tmp / "spacenet7_small.ipynb"
+    path.write_text(json.dumps(ipynb("spacenet7-small", [
+        (setup, 0.3), (KMEANS, 600.0), (TWEAK, 0.1), (KMEANS, 600.0),
+        (REPORT, 0.2)])))
+    return path
+
+
+def phase_fleet(tmp: Path) -> dict:
+    """The fleet scheduler on the card through ``run_notebook(fleet=...)``:
+    four spacenet7-tiles sessions sharing one fabric and one chunk store,
+    the quant8 field as a two-session fleet, bench_replica's four failover
+    arms at 5,000,000 elements, and the card against the CPU.  Returns the
+    state-plane kernels' launches on the fleet path."""
+    import torch
+
+    from repro_torch.kernels.hash_delta import ops as hops
+    from repro_torch.launch.notebook import run_notebook
+
+    t_phase = time.perf_counter()
+    main_nb, quant_nb = write_notebooks(tmp)
+    launches: dict = {}
+
+    # 1. four sessions of the shared dataset (two passes each under the
+    # single-cell policy, as the session phase: the first pass gives the
+    # analyzer its history, the second sends K-Means to the remote env)
+    reset_state_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shared, _ = run_notebook(str(main_nb), fleet=FLEET_SESSIONS, sessions=2,
+                             policy="single", codec="none", device="cuda",
+                             **FLEET_KW)
+    torch.cuda.synchronize()
+    shared_wall = time.perf_counter() - t0
+    shared_launches = state_kernel_counts()
+    shared_syncs = hops.HOST_SYNCS
+    peak = torch.cuda.max_memory_allocated()
+    launches = add_counts(launches, shared_launches)
+    per = shared["per_session"]
+    cells = 2 * 5
+    if [s["cells_run"] for s in per] != [cells] * FLEET_SESSIONS:
+        raise AssertionError(f"sessions did not complete: {per}")
+    if any(not s["device"].startswith("cuda") for s in per):
+        raise AssertionError(f"a session's reducer is not on the card: {per}")
+    crossed = forward_bytes(shared)
+    first = max(crossed, key=crossed.get)
+    if crossed[first] < 100 << 20:
+        raise AssertionError(f"the dataset never crossed: {crossed}")
+    for sid, n in crossed.items():
+        if sid != first and n >= crossed[first] / 100:
+            raise AssertionError(f"{sid} shipped {n} B, not under 1 % of "
+                                 f"{first}'s {crossed[first]} B: {crossed}")
+
+    # 2. the quant8 field as a two-session fleet (quantize on the way out,
+    # dequantize where it lands)
+    reset_state_kernels()
+    t0 = time.perf_counter()
+    quant, _ = run_notebook(str(quant_nb), fleet=2, sessions=2,
+                            policy="single", codec="quant8+zstd",
+                            device="cuda", **FLEET_KW)
+    torch.cuda.synchronize()
+    quant_wall = time.perf_counter() - t0
+    quant_launches = state_kernel_counts()
+    launches = add_counts(launches, quant_launches)
+    if [s["cells_run"] for s in quant["per_session"]] != [6, 6]:
+        raise AssertionError(f"quant sessions incomplete: {quant}")
+    for k in ("quantize", "dequantize"):
+        if quant_launches[k] <= 0:
+            raise AssertionError(f"{k} never launched in the quant8 fleet")
+
+    # 3. bench_replica's failover arms at 5,000,000 elements on the card
+    reset_state_kernels()
+    arms, arm_walls = {}, {}
+    for mode in (None, "rerun", "checkpoint", "replica"):
+        t0 = time.perf_counter()
+        arms[mode] = replica_arm(mode, "cuda")
+        arm_walls[str(mode)] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    arm_launches = state_kernel_counts()
+    launches = add_counts(launches, arm_launches)
+    base = arms[None].makespan
+    overhead = {str(m): arms[m].makespan - base for m in arms if m}
+    for m in ("rerun", "checkpoint", "replica"):
+        r = arms[m]
+        if r.recoveries < 1 or r.sessions[0].cells_run != REPLICA_CELLS:
+            raise AssertionError(f"arm {m}: {r}")
+    if arms["replica"].promotions != 1:
+        raise AssertionError("the replica arm did not recover by promotion")
+    gain = overhead["checkpoint"] / max(overhead["replica"], 1e-9)
+    if gain <= 10.0:
+        raise AssertionError(f"promotion beats checkpoint-restore only "
+                             f"{gain:.2f}x (> 10x expected): {overhead}")
+    t0 = time.perf_counter()
+    for mode in arms:
+        same(replica_arm(mode, "cpu"), arms[mode], f"arm {mode}")
+    arms_cpu_wall = time.perf_counter() - t0
+
+    # 4. the card against the CPU: the fleet at 64x64 tiles with a replica
+    # per session, and every kernel launch of the card's run traced
+    small = small_tiles_notebook(tmp)
+    runs = {}
+    before = state_kernel_counts()
+    n_traced, _ = hash_launches_in(lambda: runs.__setitem__(
+        "cuda", run_notebook(str(small), fleet=FLEET_SESSIONS, sessions=2,
+                             policy="single", codec="none", replicas=1,
+                             device="cuda", **FLEET_KW)[0]))
+    counted = {k: n - before[k] for k, n in state_kernel_counts().items()}
+    hashed = sum(n for k, n in counted.items() if k.startswith("block_hash"))
+    if n_traced != hashed or hashed <= 0:
+        raise AssertionError(f"profiler saw {n_traced} hash launches, the "
+                             f"wrappers counted {counted}")
+    runs["cpu"], _ = run_notebook(str(small), fleet=FLEET_SESSIONS,
+                                  sessions=2, policy="single", codec="none",
+                                  replicas=1, device="cpu", **FLEET_KW)
+    a, b = runs["cuda"], runs["cpu"]
+    same(fleet_placements(a), fleet_placements(b), "placements")
+    same(a["chunk_keys"], b["chunk_keys"], "chunk_keys")
+    same(a["chunks_held"], b["chunks_held"], "chunks_held")
+    same([{k: v for k, v in s.items() if k not in ("device", "wall_seconds")}
+          for s in a["per_session"]],
+         [{k: v for k, v in s.items() if k not in ("device", "wall_seconds")}
+          for s in b["per_session"]], "per_session")
+    same(a["makespan"], b["makespan"], "makespan")
+
+    emit({"phase": "fleet", "card": card_line(),
+          "shared_dataset": {
+              "sessions": FLEET_SESSIONS, "passes": 2, **FLEET_KW,
+              "wall_seconds": shared_wall,
+              "peak_memory_bytes": peak,
+              "per_session": [{k: s[k] for k in (
+                  "session", "arrival", "makespan", "cells_run",
+                  "migrated_bytes", "replicated_bytes", "wall_seconds",
+                  "device")} for s in per],
+              "bytes_to_remote": crossed, "first_to_ship": first,
+              "others_over_first": {sid: n / crossed[first]
+                                    for sid, n in crossed.items()
+                                    if sid != first},
+              "chunks_held": shared["chunks_held"],
+              "launches": shared_launches, "host_syncs": shared_syncs},
+          "quant8": {"wall_seconds": quant_wall,
+                     "migrated_bytes": [s["migrated_bytes"]
+                                        for s in quant["per_session"]],
+                     "launches": quant_launches},
+          "failover": {"n_elems": REPLICA_ELEMS, "wall_seconds": arm_walls,
+                       "makespan": {str(m): r.makespan
+                                    for m, r in arms.items()},
+                       "recovery_overhead": overhead,
+                       "promote_vs_checkpoint": gain,
+                       "replicated_bytes": arms["replica"].replicated_bytes,
+                       "restored_bytes": arms["checkpoint"].restored_bytes,
+                       "launches": arm_launches,
+                       "cpu_arms_equal": True,
+                       "cpu_arms_wall_seconds": arms_cpu_wall},
+          "card_vs_cpu": {"tile": SMALL_TILE, "replicas": 1, "equal": True,
+                          "hash_launches_traced": n_traced,
+                          "launches": counted},
+          "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def storm_registry(local_capacity: int):
+    from repro_torch.core import EnvironmentRegistry, ExecutionEnvironment
+    reg = EnvironmentRegistry(default_bandwidth=1e9, default_latency=0.05)
+    reg.register(ExecutionEnvironment("local"), home=True,
+                 capacity=local_capacity)
+    reg.register(ExecutionEnvironment("gpu-cloud", speedup=8.0),
+                 capacity=GPU_CAPACITY)
+    reg.connect("local", "gpu-cloud", bandwidth=5e8, latency=0.3)
+    return reg
+
+
+def storm_notebook(i: int):
+    from repro_torch.core import Notebook
+    nb = Notebook(f"user-{i % 16}")
+    nb.add_cell("x = 2.0", cost=0.5)
+    nb.add_cell("y = x * 3.0", cost=30.0)
+    nb.add_cell("z = y + 1.0", cost=1.0)
+    return nb
+
+
+def attach_storm(n: int, device: str):
+    """bench_gateway's storm: ``n`` sessions through one GatewayService."""
+    from repro_torch.core import GatewayService, poisson_attach_storm
+    gw = GatewayService(storm_registry(n + 64), warm_pool=64,
+                        cold_start=COLD_START, policy="cost",
+                        use_knowledge=False, device=device)
+    gw.add_tenant("research", weight=2.0)
+    gw.add_tenant("teaching", weight=1.0)
+    poisson_attach_storm(gw, n_sessions=n, rate=n / 5.0,
+                         think_mean=THINK_MEAN, make_notebook=storm_notebook,
+                         tenants=("research", "teaching"), seed=11)
+    t0 = time.perf_counter()
+    rep = gw.run()
+    return rep, time.perf_counter() - t0, gw
+
+
+def gateway_sim(rep) -> dict:
+    import dataclasses
+    out = {k: v for k, v in dataclasses.asdict(rep).items()
+           if k not in GATEWAY_WALL_FIELDS}
+    out["session_reports"] = sorted(out["session_reports"],
+                                    key=lambda r: r["session"])
+    return out
+
+
+def phase_gateway() -> dict:
+    """The gateway on the card: bench_gateway's 10,000-session attach storm
+    through one ``GatewayService(device="cuda")``, the server's wire storm
+    (``serve_gateway(0, stress=2000)``: ATTACH frames through a
+    WireFrontend, each session 200,000 float64 elements) and its notebook
+    fleet (``serve_notebook_fleet(8)``), then the 300-session storm on the
+    card against the CPU.  Returns the state-plane kernels' launches on
+    the gateway path."""
+    import torch
+
+    from repro_torch.kernels.hash_delta import ops as hops
+    from repro_torch.launch.serve import serve_gateway, serve_notebook_fleet
+
+    t_phase = time.perf_counter()
+    reset_state_kernels()
+    rep, storm_wall, gw = attach_storm(STORM_SESSIONS, "cuda")
+    torch.cuda.synchronize()
+    storm_launches = state_kernel_counts()
+    storm_syncs = hops.HOST_SYNCS
+    if (rep.sessions, rep.completed, rep.errors, rep.peak_concurrent) != \
+            (STORM_SESSIONS, STORM_SESSIONS, 0, STORM_SESSIONS):
+        raise AssertionError(f"storm: {rep.sessions} sessions, "
+                             f"{rep.completed} completed, {rep.errors} "
+                             f"errors, peak {rep.peak_concurrent}")
+    if gw.device.type != "cuda":
+        raise AssertionError(f"the gateway's device is {gw.device}")
+
+    t0 = time.perf_counter()
+    wire = serve_gateway(0, stress=WIRE_STORM, device="cuda")
+    torch.cuda.synchronize()
+    wire_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = serve_notebook_fleet(NOTEBOOK_FLEET, device="cuda")
+    torch.cuda.synchronize()
+    fleet_wall = time.perf_counter() - t0
+    launches = state_kernel_counts()
+    syncs = hops.HOST_SYNCS
+    if (wire["completed"], wire["errors"], wire["wire_sessions"]) != \
+            (WIRE_STORM, 0, WIRE_STORM) or wire["device"] != "cuda":
+        raise AssertionError(f"wire storm: {wire}")
+    if fleet["sessions"] != NOTEBOOK_FLEET or fleet["makespan"] <= 0 \
+            or fleet["device"] != "cuda":
+        raise AssertionError(f"notebook fleet: {fleet}")
+    if launches["block_hash"] + launches["block_hash_fold"] <= 0:
+        raise AssertionError(f"no hash launched on the gateway path: "
+                             f"{launches}")
+
+    small = {dev: gateway_sim(attach_storm(STORM_SMALL, dev)[0])
+             for dev in ("cuda", "cpu")}
+    same(small["cuda"], small["cpu"], "storm 300")
+
+    emit({"phase": "gateway", "card": card_line(),
+          "storm": {"sessions": rep.sessions, "completed": rep.completed,
+                    "errors": rep.errors,
+                    "peak_concurrent": rep.peak_concurrent,
+                    "makespan": rep.makespan,
+                    "queue_wait_p50": rep.queue_wait_p50,
+                    "queue_wait_p99": rep.queue_wait_p99,
+                    "attach_wait_p50": rep.attach_wait_p50,
+                    "attach_wait_p99": rep.attach_wait_p99,
+                    "decision_ms_p50": rep.decision_ms_p50,
+                    "decision_ms_p99": rep.decision_ms_p99,
+                    "wall_seconds": storm_wall,
+                    "events_per_sec": rep.sessions * 4 / storm_wall,
+                    "launches": storm_launches, "host_syncs": storm_syncs},
+          "wire": {**{k: wire[k] for k in (
+              "sessions", "completed", "errors", "peak_concurrent",
+              "makespan", "attach_wait_p99", "queue_wait_p99",
+              "decision_ms_p99", "pool")}, "wall_seconds": wire_wall},
+          "notebook_fleet": {**{k: fleet[k] for k in (
+              "sessions", "makespan", "queue_events", "total_queue_wait")},
+              "wall_seconds": fleet_wall},
+          "launches": launches, "host_syncs": syncs,
+          "card_vs_cpu": {"sessions": STORM_SMALL, "equal": True},
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1543,6 +1975,8 @@ def main() -> int:
         by_path = {"session": phase_session(Path(tmp))}
         phase_agree(Path(tmp))
         by_path["socket"] = phase_socket(Path(tmp))
+        by_path["fleet"] = phase_fleet(Path(tmp))
+    by_path["gateway"] = phase_gateway()
     by_path["serve"] = phase_serve()
     phase_serve_agree()
     for r in rows:

@@ -16,6 +16,10 @@ from repro_torch.core.events import Event, EventLoop
 from repro_torch.core.fabric import (
     LIFECYCLE, EnvironmentRegistry, ExecutionEnvironment, Link,
 )
+from repro_torch.core.gateway import (
+    GatewayReport, GatewayService, GatewayTenant, WarmPool, WireFrontend,
+    poisson_attach_storm,
+)
 from repro_torch.core.interaction import (
     MODELS, ConfidenceGate, EnsembleModel, FrequencyModel, InteractionModel,
     MarkovModel, RecencyModel, make_model,
@@ -30,6 +34,11 @@ from repro_torch.core.reducer import (
     SerializationFailure, SerializedState, StateReducer,
 )
 from repro_torch.core.replica import RaceTicket, SessionReplicaSet
+from repro_torch.core.scheduler import (
+    AutoscalePolicy, CapacityArbiter, ScheduleReport, SessionCheckpointer,
+    SessionReport, SessionScheduler, WorkloadTrace, gpu_training_notebook,
+    remote_sensing_notebook,
+)
 from repro_torch.core.simclock import SimClock, WallClock
 from repro_torch.core.simulator import (
     TRACES, Trace, cell_frequency, policy_grid, simulate,
@@ -58,7 +67,10 @@ __all__ = [
     "ProvRecord", "EnvFailure", "HybridRuntime", "MigrationEngine",
     "MigrationResult",
     "PipelinedMigrationEngine", "Cell", "Notebook", "SerializationFailure",
-    "SerializedState", "StateReducer", "SimClock",
+    "SerializedState", "StateReducer", "AutoscalePolicy", "CapacityArbiter",
+    "ScheduleReport", "SessionCheckpointer",
+    "SessionReport", "SessionScheduler", "WorkloadTrace",
+    "gpu_training_notebook", "remote_sensing_notebook", "SimClock",
     "WallClock", "Trace",
     "TRACES", "cell_frequency", "policy_grid", "simulate",
     "synthetic_loops_trace", "tf_guide_trace", "ExecutionState",
@@ -66,5 +78,6 @@ __all__ = [
     "MuxEnvServer", "MuxPeer", "MuxStream",
     "SocketTransport", "SubprocessEnv", "TokenBucket", "Transport",
     "WireReceiver", "attach_peer", "Frame", "FrameDecoder", "WireError",
-    "RaceTicket", "SessionReplicaSet",
+    "GatewayReport", "GatewayService", "GatewayTenant", "WarmPool",
+    "WireFrontend", "poisson_attach_storm", "RaceTicket", "SessionReplicaSet",
 ]

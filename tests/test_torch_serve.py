@@ -1,5 +1,9 @@
 """The port's LM server on the CPU: the CLI, the reference's greedy
-ids for the same seed and weights, and the options it rejects."""
+ids for the same seed and weights, the serving modes against the
+reference's server, and the families it rejects."""
+import json
+import sys
+
 import numpy as np
 import pytest
 
@@ -12,6 +16,7 @@ from repro.configs import get_config as ref_config  # noqa: E402
 from repro.configs.base import ShapeConfig as RefShape  # noqa: E402
 from repro.data import TokenPipeline as RefPipeline  # noqa: E402
 from repro.models import LM as RefLM  # noqa: E402
+from repro.launch import serve as ref_serve  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
@@ -59,13 +64,32 @@ def test_cli_serves_on_the_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--notebook-fleet", "8"], ["--gateway", "4"],
-                                  ["--replicas", "1"], ["--stress", "10"]])
-def test_cli_names_the_options_not_ported_yet(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--device", "cpu", *flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flag[0]} is not ported" in err and "ROADMAP A7" in err
+                                  ["--replicas", "1"],
+                                  ["--gateway", "0", "--stress", "10"]])
+def test_cli_names_the_options_not_ported_yet(flag, capsys, monkeypatch):
+    """The serving modes the port once turned away are ported: each command
+    line runs (its report equal to the reference's) or is refused exactly
+    as the reference's server does it."""
+    from test_torch_notebook_cli import assert_reports_agree
+
+    def run(main, argv):
+        monkeypatch.setattr(sys, "argv", ["serve", *argv])
+        try:
+            main()
+        except SystemExit as e:
+            out = capsys.readouterr()
+            return e.code, out.err.strip().splitlines()[-1]
+        out = capsys.readouterr().out.strip().splitlines()
+        assert out[-1] == "ok"
+        return 0, json.loads("\n".join(out[:-1]))
+
+    want = run(ref_serve.main, flag)
+    got = run(lambda: serve.main([*flag, "--device", "cpu"]), flag)
+    assert got[0] == want[0]
+    if want[0]:
+        assert got[1] == want[1] and "error:" in got[1]
+    else:
+        assert_reports_agree(got[1], want[1])
 
 
 @pytest.mark.parametrize("arch,family", [
