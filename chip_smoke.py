@@ -25,8 +25,9 @@ Phases, each printing one JSON line:
             yardstick);
 4. lm_kernels: flash_attention, ssd_scan and rglru_scan against their plain
             versions (TF32 off for the f32 products), at the serve path's
-            shapes (flash at yi-6b's hd 128, stablelm-12b's hd 160 and
-            recurrentgemma's hd 256), the
+            shapes (flash at yi-6b's hd 128, stablelm-12b's hd 160,
+            recurrentgemma's hd 256, qwen3-moe's GQA 64:4, whisper-tiny's
+            encoder, unmasked at S 1500, and decoder prompt, hd 64), the
             CPU tests' shapes, ragged ones and the tensor-core routes' edges
             (S under one tile, full attention, H/KV 2 and 16; one chunk,
             Q = 100, H not a multiple of the 8-head block), f32 within 2e-5
@@ -89,25 +90,42 @@ Phases, each printing one JSON line:
             stress=2000)``) and notebook fleet (``serve_notebook_fleet(8)``),
             and a 300-session storm on the card and on the CPU with every
             sim-derived field of the report equal;
-10. serve:  the LM serving path through ``repro_torch.launch.serve.serve_lm`` at
+10. checkpoint: ``repro_torch.checkpoint`` on the card: the full
+            internvl2-2b bf16 parameters (3.78 GB) and a 0-d data_step saved
+            with codec ``none``, then a delta save (one element of one leaf
+            changed, one other leaf replaced) that must write exactly those
+            2 leaves within the replaced leaf's bytes plus 2 x 256 KiB, with
+            the hash kernels traced on the card; both steps restored bit for
+            bit in bf16 on the card; full whisper-tiny through
+            ``AsyncCheckpointer`` (default codec) beside one whisper prefill,
+            restored bit for bit; GC at keep=1 (three saves, 2 manifests,
+            the chunk files exactly those they reference); prints save and
+            restore seconds, bytes and leaves written;
+11. serve:  the LM serving path through ``repro_torch.launch.serve.serve_lm`` at
             full yi-6b (batch 4, prompt 2048), full mamba2-370m (batch 8,
             prompt 2000), full recurrentgemma-9b (batch 4, prompt 2048, its
-            local window) and full stablelm-12b (batch 4, prompt 2048),
-            seeded bf16 weights, 32 greedy tokens each; one prefill must
-            launch flash_attention 32 times (yi-6b), ssd_scan 48 times
+            local window), full stablelm-12b (batch 4, prompt 2048), full
+            qwen2-moe-a2.7b (batch 4, prompt 2048), qwen3-moe-235b-a22b at
+            full width and 8 of its 94 layers (batch 4, prompt 2048), full
+            internvl2-2b (batch 4, 256 patches + 1792 text tokens) and full
+            whisper-tiny (batch 4, decoder prompt 384 over 1500 encoder
+            frames), seeded bf16 weights, 32 greedy tokens each; one prefill
+            must launch flash_attention 32 times (yi-6b), ssd_scan 48 times
             (mamba2), rglru_scan 26 and flash_attention 12 times
             (recurrentgemma), flash_attention 40 times at hd 160
-            (stablelm-12b), once per layer; every id must lie in [0,
-            padded_vocab); prints prefill seconds, decode tokens/s and the
-            peak memory of prefill and decode;
-11. serve_agree: the reduced yi-6b, mamba2-370m, recurrentgemma-9b
+            (stablelm-12b), 24 (qwen2-moe), 8 (qwen3-moe), 24 (internvl2)
+            and 8 (whisper: 4 unmasked, 4 causal), once per layer; every id
+            must lie in [0, padded_vocab); prints prefill seconds, decode
+            tokens/s and the peak memory of prefill and decode;
+12. serve_agree: the reduced yi-6b, mamba2-370m, recurrentgemma-9b
             (prompts 48, full causal attention through flash, and 64, banded
-            attention) and stablelm-12b (hd 16, and hd 160) in f32 on the
+            attention), stablelm-12b (hd 16, and hd 160), qwen2-moe-a2.7b,
+            qwen3-moe-235b-a22b, internvl2-2b and whisper-tiny in f32 on the
             card and on the CPU with the same weights: logits within 1e-4
-            (dense, hybrid) and 1e-3 (mamba2), equal greedy ids.
+            (1e-3 for mamba2), equal greedy ids.
 
 Then the ``kernels`` line (each kernel's launches summed over the session,
-socket, fleet, gateway and serve runs, and split by run in
+socket, fleet, gateway, checkpoint and serve runs, and split by run in
 ``launches_by_path``), and last
 ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero.  Without a CUDA device, or outside a
@@ -574,6 +592,10 @@ TOL = {("flash_attention", "float32"): (2e-5, 2e-5),
        ("rglru_scan", "bfloat16"): (1e-3, 1.6e-2)}
 RG_BATCH, RG_PROMPT = 4, 2048          # recurrentgemma-9b: the local window
 SL_BATCH, SL_PROMPT = 4, 2048          # stablelm-12b
+MOE_BATCH, MOE_PROMPT = 4, 2048        # qwen2-moe-a2.7b, qwen3-moe-235b-a22b
+QWEN3_LAYERS = 8                       # of 94: full qwen3 needs 470 GB
+VLM_BATCH, VLM_PROMPT = 4, 2048        # internvl2-2b: 256 patches + 1792 text
+WH_BATCH, WH_PROMPT = 4, 384           # whisper-tiny: + 32 stays within 448
 
 
 def phase_lm_kernels() -> list[dict]:
@@ -630,6 +652,16 @@ def phase_lm_kernels() -> list[dict]:
     sl = get_config("stablelm-12b")
     sl_fa = (SL_BATCH, sl.num_heads, sl.num_kv_heads, SL_PROMPT,
              sl.resolved_head_dim)
+    # whisper-tiny: the encoder's unmasked attention over its 1500 frames
+    # (ragged against the 64-row tiles) and the decoder's causal prompt,
+    # hd 64; qwen3-moe's GQA 64:4 prefill, hd 128
+    wh, q3 = get_config("whisper-tiny"), get_config("qwen3-moe-235b-a22b")
+    wh_enc = (WH_BATCH, wh.num_heads, wh.num_kv_heads, wh.encoder_seq,
+              wh.resolved_head_dim)
+    wh_dec = (WH_BATCH, wh.num_heads, wh.num_kv_heads, WH_PROMPT,
+              wh.resolved_head_dim)
+    q3_fa = (MOE_BATCH, q3.num_heads, q3.num_kv_heads, MOE_PROMPT,
+             q3.resolved_head_dim)
     fa_cases = [(main_fa, bf16, True), (main_fa, f32, True),
                 ((1, 4, 4, 128, 64), f32, True), ((2, 8, 2, 256, 64), f32, True),
                 ((1, 8, 1, 128, 128), f32, True), ((1, 6, 6, 192, 32), f32, True),
@@ -656,7 +688,11 @@ def phase_lm_kernels() -> list[dict]:
                 ((1, 4, 2, 1, 160), bf16, True), ((2, 4, 2, 17, 160), bf16, True),
                 ((2, 4, 2, 17, 160), f32, True), ((1, 8, 2, 333, 160), bf16, True),
                 ((1, 8, 2, 333, 160), f32, True), ((1, 4, 2, 200, 160), bf16, False),
-                ((1, 4, 2, 200, 160), f32, False), ((2, 32, 8, 130, 160), bf16, True)]
+                ((1, 4, 2, 200, 160), f32, False), ((2, 32, 8, 130, 160), bf16, True),
+                # the whisper encoder (full attention, S 1500), its decoder
+                # and qwen3-moe's GQA 64:4 at their serve shapes
+                (wh_enc, bf16, False), (wh_enc, f32, False),
+                (wh_dec, bf16, True), (q3_fa, bf16, True)]
     def plain_f32(q, k, v, causal=True):
         """The plain version on the same values widened to f32 (exactly),
         rounded to the input dtype at the end: the kernel's arithmetic.
@@ -675,25 +711,28 @@ def phase_lm_kernels() -> list[dict]:
         checked.append([B, H, KV, S, hd, str(dtype).removeprefix("torch."),
                         "causal" if causal else "full", err])
 
-    def time_flash(B, H, KV, S, hd):
+    def time_flash(B, H, KV, S, hd, causal=True):
         """Kernel (bf16 route, and the f32 route on the same values), plain
-        version and SDPA at one causal shape."""
+        version and SDPA at one shape, causal or full."""
         q = randn((B, H, S, hd), bf16)
         k, v = randn((B, KV, S, hd), bf16), randn((B, KV, S, hd), bf16)
-        vs_bf16_plain = float((fk.flash_attention_kernel(q, k, v).float()
-                               - attention_ref(q, k, v).float()).abs().max())
-        ms = time_ms(lambda: fk.flash_attention_kernel(q, k, v), REPS)
-        per_kernel = device_kernels_ms(lambda: fk.flash_attention_kernel(q, k, v))
+
+        def kern(*qkv):
+            return fk.flash_attention_kernel(*qkv, causal=causal)
+
+        vs_bf16_plain = float((kern(q, k, v).float() - attention_ref(
+            q, k, v, causal=causal).float()).abs().max())
+        ms = time_ms(lambda: kern(q, k, v), REPS)
+        per_kernel = device_kernels_ms(lambda: kern(q, k, v))
         q32, k32, v32 = q.float(), k.float(), v.float()
-        ms_f32 = time_ms(lambda: fk.flash_attention_kernel(q32, k32, v32),
-                         max(2, REPS // 4))
+        ms_f32 = time_ms(lambda: kern(q32, k32, v32), max(2, REPS // 4))
         # the f32 route's yardstick: SDPA on the same f32 values (TF32 off
         # for the phase), called with enable_gqa and with kv repeated
         f32_lib = {}
         try:
             f32_lib["scaled_dot_product_attention(is_causal, enable_gqa)"] = \
                 time_ms(lambda: F.scaled_dot_product_attention(
-                    q32, k32, v32, is_causal=True, enable_gqa=True),
+                    q32, k32, v32, is_causal=causal, enable_gqa=True),
                     max(2, REPS // 4))
         except TypeError:      # a torch without enable_gqa
             pass
@@ -701,20 +740,22 @@ def phase_lm_kernels() -> list[dict]:
         vr32 = v32.repeat_interleave(H // KV, dim=1)
         f32_lib["scaled_dot_product_attention(is_causal), kv repeated"] = \
             time_ms(lambda: F.scaled_dot_product_attention(
-                q32, kr32, vr32, is_causal=True), max(2, REPS // 4))
+                q32, kr32, vr32, is_causal=causal), max(2, REPS // 4))
         del q32, k32, v32, kr32, vr32
-        plain_ms = time_ms(lambda: attention_ref(q, k, v), max(2, REPS // 10))
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal),
+                           max(2, REPS // 10))
         try:
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), REPS)
+                q, k, v, is_causal=causal, enable_gqa=True), REPS)
             library_call = "scaled_dot_product_attention(is_causal, enable_gqa)"
         except TypeError:      # a torch without enable_gqa: repeat kv first
             kr = k.repeat_interleave(H // KV, dim=1)
             vr = v.repeat_interleave(H // KV, dim=1)
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, kr, vr, is_causal=True), REPS)
+                q, kr, vr, is_causal=causal), REPS)
             library_call = "scaled_dot_product_attention(is_causal), kv repeated"
-        flops = 4 * B * H * (S * (S + 1) // 2) * hd
+        pairs = S * (S + 1) // 2 if causal else S * S
+        flops = 4 * B * H * pairs * hd
         b, by = bound(2 * (2 * B * H * S * hd + 2 * B * KV * S * hd), flops,
                       BF16_OPS_PER_S)
         return {"max_abs_err_vs_bf16_plain": vs_bf16_plain,
@@ -723,7 +764,8 @@ def phase_lm_kernels() -> list[dict]:
                 "library_ms_f32_by_call": f32_lib,
                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                 "library_ms": library_ms, "library_call": library_call,
-                "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
+                "timed_shape": [B, H, KV, S, hd, "bfloat16",
+                                "causal" if causal else "full"],
                 "flops": flops}
 
     rows = [{"name": "flash_attention", "route": "cuda",
@@ -737,6 +779,11 @@ def phase_lm_kernels() -> list[dict]:
              **time_flash(*main_fa),
              "hd256": time_flash(*rg_fa),   # recurrentgemma-9b's prefill
              "hd160": time_flash(*sl_fa),   # stablelm-12b's prefill
+             # whisper-tiny's encoder (full) and decoder prompt, hd 64;
+             # qwen3-moe's GQA 64:4
+             "whisper_encoder": time_flash(*wh_enc, causal=False),
+             "whisper_decoder": time_flash(*wh_dec),
+             "qwen3_gqa": time_flash(*q3_fa),
              "checked_shapes": checked}]
 
     # -- SSD scan --------------------------------------------------------
@@ -1771,6 +1818,224 @@ def phase_gateway() -> dict:
     return launches
 
 
+CKPT_ARCH = "internvl2-2b"              # the full model the checkpoint saves
+CKPT_SLACK = 2 * CHUNK                  # the changed element's chunk + metadata
+
+
+def bits_equal(a, b) -> bool:
+    """Equal shape, dtype and bits (a bf16 -0.0 is not a 0.0)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+        return False
+    if a.dtype.is_floating_point and a.element_size() == 2:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a, b)
+
+
+def tree_bits_equal(got, want, path="$") -> None:
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{path}: keys differ")
+        for k in want:
+            tree_bits_equal(got[k], want[k], f"{path}[{k!r}]")
+    elif not bits_equal(got, want):
+        raise AssertionError(f"{path}: restored leaf differs from the saved "
+                             f"one ({got.dtype} {tuple(got.shape)} on "
+                             f"{got.device})")
+
+
+def phase_checkpoint(tmp: Path) -> dict:
+    """Checkpointing as migration to a storage env on the card:
+    1. the full internvl2-2b bf16 parameters (3.78 GB on the card) plus a
+       0-d ``data_step`` through ``Checkpointer(codec="none",
+       device="cuda")`` (codec ``none``: this machine lacks ``zstandard``,
+       and zlib of 3.8 GB of random bf16 takes about a minute); then one
+       element of one leaf changed and one other leaf replaced whole: the
+       second save writes exactly those 2 leaves, at most the replaced
+       leaf's bytes plus 2 x 256 KiB (the changed chunk and the metadata),
+       with the hash kernels traced on the card; both steps restore bit for
+       bit, in bf16, on the card;
+    2. full whisper-tiny through ``AsyncCheckpointer`` (default codec) while
+       one whisper-tiny prefill runs; restored bit for bit;
+    3. GC at ``keep=1``: three saves leave 2 manifests, and the chunk files
+       are exactly those the two reference.
+    Returns the kernels' launches on the checkpoint path."""
+    import gc
+    import os
+
+    import torch
+
+    from repro_torch.checkpoint import AsyncCheckpointer, Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+    from repro_torch.models.layers import spec_leaves
+
+    t_phase = time.perf_counter()
+    reset_state_kernels()
+    for m in lm_kernels():
+        m.reset_launches()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def hash_count(counts):
+        return sum(counts.get(k, 0) for k in
+                   ("block_hash", "block_hash_compare", "block_hash_fold"))
+
+    # -- 1: the full internvl2-2b, a delta save, both steps restored -----
+    cfg = get_config(CKPT_ARCH)
+    params = LM(cfg, device="cuda").init(SEED, torch.bfloat16)
+    leaves = spec_leaves(params)
+    param_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    trees = {"params": params,
+             "data_step": torch.tensor(1000, dtype=torch.int64, device="cuda")}
+    ck = Checkpointer(str(tmp / CKPT_ARCH), codec="none", device="cuda")
+    info1, save1_s = timed(lambda: ck.save(1, trees))
+    after_first = state_kernel_counts()
+    if hash_count(after_first) <= 0:
+        raise AssertionError(f"the first save launched no hash kernel: "
+                             f"{after_first}")
+    if info1.n_leaves_written != info1.n_leaves_total or \
+            info1.n_leaves_total != len(leaves) + 1:
+        raise AssertionError(f"first save: {info1}")
+
+    stack = params["decoder"]["stack"]
+    old_wq, old_ln1 = stack["attn"]["wq"].clone(), stack["ln1"]
+    stack["attn"]["wq"].view(-1)[123_457] += 1.0      # one element
+    stack["ln1"] = torch.randn(old_ln1.shape, device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(SEED)).to(old_ln1.dtype)
+    replaced_bytes = old_ln1.numel() * old_ln1.element_size()
+    infos = []
+    traced_hash, traced = hash_launches_in(
+        lambda: infos.append(ck.save(2, trees)))
+    torch.cuda.synchronize()
+    info2 = infos[0]
+    delta_bound = replaced_bytes + CKPT_SLACK
+    if info2.n_leaves_written != 2 or info2.nbytes > delta_bound:
+        raise AssertionError(f"delta save: {info2.n_leaves_written} leaves, "
+                             f"{info2.nbytes} B (bound {delta_bound} B)")
+    after_delta = state_kernel_counts()
+    # the wrappers' counts decide; the trace must agree wherever the
+    # profiler records device activity at all (late in a full run, after
+    # the gateway phase, it has recorded none: PERF.md section 7)
+    if hash_count(after_delta) <= hash_count(after_first) or \
+            (traced and traced_hash <= 0):
+        raise AssertionError(
+            f"the delta save ran no hash kernel on the card: {traced_hash} "
+            f"traced of {len(traced)} device activities "
+            f"{sorted(set(traced))[:12]}; counts {after_first} -> "
+            f"{after_delta}")
+
+    templates = {"params": params, "data_step": trees["data_step"]}
+    (out2, step2), restore2_s = timed(lambda: ck.restore(templates))
+    if step2 != 2:
+        raise AssertionError(f"restored step {step2}, expected 2")
+    tree_bits_equal(out2, templates)
+    del out2
+    gc.collect()
+    (out1, step1), restore1_s = timed(lambda: ck.restore(templates, step=1))
+    want1 = dict(templates, params=dict(params, decoder={"stack": dict(
+        stack, ln1=old_ln1, attn=dict(stack["attn"], wq=old_wq))}))
+    if step1 != 1:
+        raise AssertionError(f"restored step {step1}, expected 1")
+    tree_bits_equal(out1, want1)
+    del out1, want1, old_wq, old_ln1, params, trees, templates, stack, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    big = {"arch": CKPT_ARCH, "param_bytes": param_bytes,
+           "leaves": info1.n_leaves_total,
+           "save_seconds": [save1_s, info2.seconds],
+           "restore_seconds": {"step2": restore2_s, "step1": restore1_s},
+           "nbytes": [info1.nbytes, info2.nbytes],
+           "leaves_written": [info1.n_leaves_written,
+                              info2.n_leaves_written],
+           "delta_bound_bytes": delta_bound,
+           "delta_hash_launches": hash_count(after_delta)
+           - hash_count(after_first),
+           "delta_traced_hash_launches": traced_hash,
+           "delta_traced_device_activities": len(traced),
+           "save_gb_per_s": param_bytes / save1_s / 1e9}
+
+    # -- 2: whisper-tiny through the async writer, beside a prefill ------
+    wcfg = get_config("whisper-tiny")
+    wlm = LM(wcfg, max_seq=WH_PROMPT + GEN, device="cuda")
+    wparams = wlm.init(SEED, torch.bfloat16)
+    batch = TokenPipeline(wcfg, ShapeConfig("ckpt", "prefill", WH_PROMPT,
+                                            WH_BATCH), seed=SEED).prefill_batch(0)
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    flash_before = lm_launches()["flash_attention"]
+    ack = AsyncCheckpointer(Checkpointer(str(tmp / "whisper-tiny"),
+                                         device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ack.save(1, {"params": wparams})
+    t_snapshot = time.perf_counter() - t0
+    logits, _ = wlm.prefill(tokens, cache_len=WH_PROMPT + GEN,
+                            encoder_frames=batch["encoder_frames"])
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    writer_alive = ack._thread is not None and ack._thread.is_alive()
+    ack.wait()
+    t_async = time.perf_counter() - t0
+    winfo = ack.last_info
+    if winfo is None or winfo.n_leaves_written != winfo.n_leaves_total:
+        raise AssertionError(f"async save: {winfo}")
+    if lm_launches()["flash_attention"] - flash_before != \
+            expected_launches(wcfg, WH_PROMPT)["flash_attention"] or \
+            not torch.isfinite(logits).all():
+        raise AssertionError("the prefill beside the async save")
+    (wout, _), wrestore_s = timed(lambda: ack.inner.restore(
+        {"params": wparams}))
+    tree_bits_equal(wout, {"params": wparams})
+    del wout, logits
+
+    # -- 3: GC at keep=1 ---------------------------------------------------
+    gck = Checkpointer(str(tmp / "gc"), codec="none", keep=1, device="cuda")
+    chunk_sets = []
+    for s in (1, 2, 3):
+        wparams["ln_f"] += 1.0
+        gck.save(s, {"params": wparams})
+        chunk_sets.append({int(f[len("chunk-"):-len(".bin")], 16)
+                           for f in os.listdir(gck.dir)
+                           if f.startswith("chunk-") and f.endswith(".bin")})
+    referenced = {d for st in gck._steps()
+                  for rec in gck._manifest(st)["names"].values()
+                  for a in rec["arrays"] for d in a["chunks"]}
+    if gck._steps() != [2, 3] or chunk_sets[-1] != referenced or \
+            not chunk_sets[1] - chunk_sets[-1]:
+        raise AssertionError(f"gc: steps {gck._steps()}, "
+                             f"{len(chunk_sets[-1])} chunk files, "
+                             f"{len(referenced)} referenced")
+    del wparams, wlm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {**state_kernel_counts(), **lm_launches()}
+    emit({"phase": "checkpoint", "card": card_line(), "internvl2": big,
+          "whisper_async": {"nbytes": winfo.nbytes,
+                            "leaves": winfo.n_leaves_total,
+                            "codec": ack.inner.codec,
+                            "snapshot_seconds": t_snapshot,
+                            "prefill_seconds_beside": t_prefill,
+                            "writer_running_after_prefill": writer_alive,
+                            "save_seconds": winfo.seconds,
+                            "wall_seconds": t_async,
+                            "restore_seconds": wrestore_s},
+          "gc": {"keep": 1, "saves": 3, "manifests": gck._steps(),
+                 "chunk_files": len(chunk_sets[-1]),
+                 "removed": len(chunk_sets[1] - chunk_sets[-1])},
+          "bit_equal": True, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1794,47 +2059,79 @@ def expected_launches(cfg, prompt: int) -> dict:
     """One prefill's launches: the SSD scan in every ssm layer, the RG-LRU
     scan in every rec layer, flash in every attention layer except where
     the reference's dispatch takes banded attention (a local window, and S
-    a multiple of it above it)."""
+    a multiple of it above it), and in every encoder layer of an encdec
+    (unmasked)."""
     kinds = cfg.layer_kinds()
     w = cfg.local_window if cfg.block_pattern else 0
     banded = bool(w) and prompt > w and prompt % w == 0
-    return {"flash_attention": 0 if banded else kinds.count("attn"),
+    encoder = cfg.encoder_layers if cfg.family == "encdec" else 0
+    return {"flash_attention": (0 if banded else kinds.count("attn")) + encoder,
             "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
+
+
+def flash_only(n: int) -> dict:
+    return {"flash_attention": n, "ssd_scan": 0, "rglru_scan": 0}
 
 
 # one prefill's launches, stated where the config alone decides them
 SERVE_LAUNCHES = {
     "recurrentgemma-9b": {"flash_attention": 12, "ssd_scan": 0, "rglru_scan": 26},
-    "stablelm-12b": {"flash_attention": 40, "ssd_scan": 0, "rglru_scan": 0},
+    "stablelm-12b": flash_only(40),
+    "qwen2-moe-a2.7b": flash_only(24),
+    "qwen3-moe-235b-a22b": flash_only(QWEN3_LAYERS),
+    "internvl2-2b": flash_only(24),
+    "whisper-tiny": flash_only(8),        # 4 encoder (full), 4 decoder
 }
+
+
+def serve_config(arch: str):
+    """The full config of a serve cell; qwen3-moe-235b-a22b at
+    ``QWEN3_LAYERS`` of its 94 layers, at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "qwen3-moe-235b-a22b":
+        cfg = dataclasses.replace(cfg, num_layers=QWEN3_LAYERS)
+    return cfg
+
+
+SERVE_CELLS = (("yi-6b", YI_BATCH, YI_PROMPT),
+               ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT),
+               ("recurrentgemma-9b", RG_BATCH, RG_PROMPT),
+               ("stablelm-12b", SL_BATCH, SL_PROMPT),
+               ("qwen2-moe-a2.7b", MOE_BATCH, MOE_PROMPT),
+               ("qwen3-moe-235b-a22b", MOE_BATCH, MOE_PROMPT),
+               ("internvl2-2b", VLM_BATCH, VLM_PROMPT),
+               ("whisper-tiny", WH_BATCH, WH_PROMPT))
 
 
 def phase_serve() -> dict:
     """The LM serving path on the card through ``serve_lm``: full yi-6b,
-    full mamba2-370m, full recurrentgemma-9b and full stablelm-12b with
-    seeded bf16 weights.  One prefill must launch each layer's kernel once
-    (decode runs plain PyTorch): flash 32 (yi-6b); SSD 48 (mamba2); RG-LRU
-    26 and flash 12 (recurrentgemma, whose prompt of 2048 equals its
-    window, so its attention layers run full causal attention through
-    flash); flash 40 at head dim 160 (stablelm-12b).  Every id
-    must lie in [0, padded_vocab).  Returns the launches of the kernels,
-    summed over the four models."""
+    full mamba2-370m, full recurrentgemma-9b, full stablelm-12b, full
+    qwen2-moe-a2.7b, qwen3-moe-235b-a22b at full width and 8 of its 94
+    layers, full internvl2-2b and full whisper-tiny with seeded bf16
+    weights.  One prefill must launch each layer's kernel once (decode runs
+    plain PyTorch): flash 32 (yi-6b); SSD 48 (mamba2); RG-LRU 26 and flash
+    12 (recurrentgemma, whose prompt of 2048 equals its window, so its
+    attention layers run full causal attention through flash); flash 40 at
+    head dim 160 (stablelm-12b); flash 24 (qwen2-moe), 8 (qwen3-moe, GQA
+    64:4), 24 (internvl2, over 256 patches and 1792 text tokens) and 8
+    (whisper: 4 unmasked over the encoder's 1500 frames, 4 causal over the
+    decoder's prompt).  Every id must lie in [0, padded_vocab).  Returns
+    the launches of the kernels, summed over the models."""
     import gc
 
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models import LM
     from repro_torch.models.layers import param_count
 
     launches = {}
-    for arch, batch, prompt in (("yi-6b", YI_BATCH, YI_PROMPT),
-                                ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT),
-                                ("recurrentgemma-9b", RG_BATCH, RG_PROMPT),
-                                ("stablelm-12b", SL_BATCH, SL_PROMPT)):
-        cfg = get_config(arch)
+    for arch, batch, prompt in SERVE_CELLS:
+        cfg = serve_config(arch)
         want = expected_launches(cfg, prompt)
         if arch in SERVE_LAUNCHES and want != SERVE_LAUNCHES[arch]:
             raise AssertionError(f"{arch}: expected launches {want}")
@@ -1864,7 +2161,11 @@ def phase_serve() -> dict:
                 raise AssertionError(f"{arch}: {key} not finite of shape "
                                      f"({batch}, {cfg.padded_vocab})")
         emit({"phase": "serve", "arch": arch, "card": card_line(),
-              "params": param_count(LM(cfg, device="cpu").spec),
+              "params": param_count(LM(cfg, max_seq=prompt + GEN,
+                                       device="cpu").spec),
+              "layers": cfg.num_layers,
+              "reduced": (f"{QWEN3_LAYERS} of 94 layers (full width)"
+                          if arch == "qwen3-moe-235b-a22b" else None),
               "dtype": "bfloat16", "batch": batch, "prompt_len": prompt,
               "gen": GEN, "prefill_seconds": out["prefill_seconds"],
               "decode_seconds": out["decode_seconds"],
@@ -1886,7 +2187,13 @@ SERVE_AGREE = (("yi-6b", REDUCED_PROMPT, 1e-4),
                ("recurrentgemma-9b", 64, 1e-4),
                ("stablelm-12b", REDUCED_PROMPT, 1e-4),
                # stablelm-12b at its own head dim, 160: flash's f32 route
-               ("stablelm-12b-hd160", REDUCED_PROMPT, 1e-4))
+               ("stablelm-12b-hd160", REDUCED_PROMPT, 1e-4),
+               ("qwen2-moe-a2.7b", REDUCED_PROMPT, 1e-4),
+               ("qwen3-moe-235b-a22b", REDUCED_PROMPT, 1e-4),
+               # 8 patches + 40 text tokens
+               ("internvl2-2b", REDUCED_PROMPT, 1e-4),
+               # 48 decoder tokens over 24 encoder frames
+               ("whisper-tiny", REDUCED_PROMPT, 1e-4))
 # reduced configs beyond ``get_config(arch, reduced=True)``: the tests'
 # stablelm-12b at head dim 160 (tests/test_torch_model.py, STABLELM_HD160)
 REDUCED_VARIANTS = {"stablelm-12b-hd160": ("stablelm-12b", {
@@ -1903,8 +2210,9 @@ def reduced_config(name: str):
 
 def phase_serve_agree() -> None:
     """The reduced yi-6b, mamba2-370m, recurrentgemma-9b (at prompts 48
-    and 64) and stablelm-12b (at head dim 16, and at its own 160) in f32
-    through ``serve_lm`` on the card (the kernels) and on the CPU (their
+    and 64), stablelm-12b (at head dim 16, and at its own 160),
+    qwen2-moe-a2.7b, qwen3-moe-235b-a22b, internvl2-2b and whisper-tiny in
+    f32 through ``serve_lm`` on the card (the kernels) and on the CPU (their
     plain versions, which the CPU tests hold to the JAX reference), with
     the same weights: logits within the model tolerances,
     equal greedy ids, and on the card exactly the expected launches (none
@@ -1919,7 +2227,9 @@ def phase_serve_agree() -> None:
     errs, ran = {}, {}
     for arch, prompt, tol in SERVE_AGREE:
         cfg = reduced_config(arch)
-        params = LM(cfg, device="cpu").init(SEED, torch.float32)
+        # an encdec's decoder positions are sized by max_seq: serve_lm's
+        params = LM(cfg, max_seq=prompt + 8, device="cpu").init(
+            SEED, torch.float32)
         out = {}
         for dev in ("cuda", "cpu"):
             before = lm_launches()
@@ -1977,6 +2287,8 @@ def main() -> int:
         by_path["socket"] = phase_socket(Path(tmp))
         by_path["fleet"] = phase_fleet(Path(tmp))
     by_path["gateway"] = phase_gateway()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        by_path["checkpoint"] = phase_checkpoint(Path(tmp))
     by_path["serve"] = phase_serve()
     phase_serve_agree()
     for r in rows:

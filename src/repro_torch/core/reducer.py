@@ -167,6 +167,49 @@ def _tree_flatten(obj) -> tuple[list, str]:
     return leaves, f"PyTreeDef({walk(obj)})"
 
 
+def tree_map_with_path(fn, obj):
+    """The path-carrying twin of :func:`_tree_flatten`: rebuild ``obj``
+    with every leaf ``x`` replaced by ``fn(path, x)``, called in jax's
+    flatten order, where ``path`` is the leaf's
+    ``jax.tree_util.keystr``: ``['a']`` for a dict, ``OrderedDict`` or
+    ``defaultdict`` key (``[1]`` for an int key), ``[0]`` for a list or
+    tuple item, ``.step`` for a namedtuple field, ``''`` for a leaf at
+    the root.  ``None`` is an empty node and stays ``None``; the node
+    types are those of :func:`_tree_flatten`, dicts rebuilt with their
+    keys sorted as jax's ``tree_unflatten`` gives them."""
+    def walk(x, path: str):
+        t = type(x)
+        if x is None:
+            return None
+        if t is dict or t is defaultdict:
+            try:
+                keys = sorted(x)
+            except TypeError as e:
+                raise ValueError("Comparator raised exception while sorting "
+                                 "pytree dictionary keys.") from e
+            items = [(k, walk(x[k], f"{path}[{k!r}]")) for k in keys]
+            return (dict(items) if t is dict
+                    else defaultdict(x.default_factory, items))
+        if t is OrderedDict:
+            return OrderedDict((k, walk(v, f"{path}[{k!r}]"))
+                               for k, v in x.items())
+        if t is list or t is tuple:
+            return t(walk(v, f"{path}[{i}]") for i, v in enumerate(x))
+        if isinstance(x, tuple) and hasattr(t, "_fields"):
+            return t(*(walk(getattr(x, f), f"{path}.{f}") for f in t._fields))
+        return fn(path, x)
+
+    return walk(obj, "")
+
+
+def tree_flatten_with_path(obj) -> list[tuple[str, Any]]:
+    """``(keystr path, leaf)`` pairs in jax's flatten order, as
+    ``jax.tree_util.tree_flatten_with_path`` with ``keystr`` gives them."""
+    out: list = []
+    tree_map_with_path(lambda p, x: out.append((p, x)), obj)
+    return out
+
+
 # Target namespace for function-globals rebinding during deserialization:
 # a migrated cell-defined function must resolve its globals in the
 # *destination* environment's namespace (paper: the remote kernel).

@@ -7,9 +7,11 @@ greedy tokens; or serve many notebook sessions (the counterpart of
 
 ``--device cuda`` (the default) runs prefill attention, the SSD scan and
 the RG-LRU scan through the hand-written CUDA kernels and raises without a
-card; ``--device cpu`` runs their plain PyTorch versions.  The dense, ssm
-and hybrid families are ported (e.g. ``--arch recurrentgemma-9b``); the
-others (moe, encdec, vlm) are rejected with an error that names them.
+card; ``--device cpu`` runs their plain PyTorch versions.  Every family
+serves (e.g. ``--arch recurrentgemma-9b``, ``--arch qwen2-moe-a2.7b``,
+``--arch internvl2-2b``, ``--arch whisper-tiny``); a vlm's prompt is its
+patch embeddings and the rest text, an encdec's the decoder's tokens over
+the pipeline's encoder frames.
 
 Notebook-fleet mode serves many concurrent notebook *sessions* instead of
 token batches: N users' sessions multiplexed by the SessionScheduler over a
@@ -60,10 +62,12 @@ def _sync(dev: torch.device) -> None:
 def serve_lm(cfg, *, batch: int = 4, prompt_len: int = 48, gen: int = 16,
              seed: int = 0, device="cuda", dtype=torch.bfloat16,
              params=None) -> dict:
-    """Prefill ``batch`` prompts of ``prompt_len`` tokens from the seeded
-    pipeline (the reference's prompts for the same seed), then decode
-    ``gen`` greedy tokens; the argmax runs over ``padded_vocab``, pad
-    columns included, as the reference's does.
+    """Prefill ``batch`` prompts of ``prompt_len`` positions from the seeded
+    pipeline's whole ``prefill_batch(0)`` (the reference's prompts for the
+    same seed: tokens, plus a vlm's ``vision_embeds``, which take
+    ``num_patches`` of the positions, or an encdec's ``encoder_frames``),
+    then decode ``gen`` greedy tokens; the argmax runs over
+    ``padded_vocab``, pad columns included, as the reference's does.
 
     Weights: random from a ``torch.Generator`` seeded with ``seed`` in
     ``dtype``, or ``params``, a tree in the reference's layout of numpy
@@ -78,7 +82,8 @@ def serve_lm(cfg, *, batch: int = 4, prompt_len: int = 48, gen: int = 16,
     total = prompt_len + gen
     lm = LM(cfg, max_seq=total, device=dev)
     shape = ShapeConfig("cli", "prefill", prompt_len, batch)
-    prompt = TokenPipeline(cfg, shape, seed=seed).prefill_batch(0)["tokens"]
+    batch_in = TokenPipeline(cfg, shape, seed=seed).prefill_batch(0)
+    prompt = batch_in.pop("tokens")
     tokens = torch.from_numpy(prompt).to(dev)
     if params is None:
         lm.init(seed, dtype)
@@ -89,7 +94,7 @@ def serve_lm(cfg, *, batch: int = 4, prompt_len: int = 48, gen: int = 16,
         torch.cuda.reset_peak_memory_stats(dev)
 
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(tokens, cache_len=total)
+    logits, cache = lm.prefill(tokens, cache_len=total, **batch_in)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits
@@ -384,8 +389,7 @@ def main(argv=None) -> None:
 
     try:
         cfg = get_config(args.arch, reduced=args.reduced)
-        LM(cfg, device="cpu")              # rejects an unported family
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         ap.error(str(e))
 
     out = serve_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,

@@ -8,15 +8,20 @@ attention and the cache write stay plain PyTorch, as in the reference.
 All softmax arithmetic is f32; masks use -1e30 (never -inf).  The hybrid
 family's banded local attention (prefill) and ring-buffer window decode
 are plain PyTorch, as the reference computes them in XLA outside any
-Pallas kernel.  Cross attention (encdec) and the per-head q/k norm (qwen3,
-the moe family) are not ported yet.
+Pallas kernel.  The whisper encoder's unmasked self attention also goes
+through flash (``causal=False``; its q and kv lengths are equal), where the
+reference computes it with the XLA :func:`cross_attention`.  Cross
+attention proper (the decoder's queries against the encoder's 1500
+frames) stays plain PyTorch: its q and kv lengths differ, which neither
+flash kernel takes, and the reference computes it in XLA outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import P, apply_rope
+from repro_torch.models.layers import P, apply_rope, head_rms_norm
 
 NEG = -1e30
 
@@ -24,33 +29,42 @@ NEG = -1e30
 def attn_spec(cfg):
     d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    return {
+    spec = {
         "wq": P((d, H, hd), ("embed", "heads", "head_dim")),
         "wk": P((d, KV, hd), ("embed", "kv_heads", "head_dim")),
         "wv": P((d, KV, hd), ("embed", "kv_heads", "head_dim")),
         "wo": P((H, hd, d), ("heads", "head_dim", "embed")),
     }
+    if cfg.qk_norm:
+        spec["q_norm"] = P((hd,), ("head_dim",), init="zeros")
+        spec["k_norm"] = P((hd,), ("head_dim",), init="zeros")
+    return spec
 
 
 def qkv_project(p, x, cfg, positions):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd) with rope."""
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd) with rope + optional
+    qk-norm (before rope, as the reference does)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, rope_pct=cfg.rope_pct, theta=cfg.rope_theta)
         k = apply_rope(k, positions, rope_pct=cfg.rope_pct, theta=cfg.rope_theta)
     return q, k, v
 
 
-def prefill_attention(q, k_heads, v_heads):
-    """Causal attention over a whole prompt.  q (B,S,H,hd); k/v already in
-    the cache layout (B,KV,S,hd) -> (B,S,H,hd).
+def prefill_attention(q, k_heads, v_heads, *, causal: bool = True):
+    """Attention over a whole prompt through flash, causal (a decoder's
+    prefill) or unmasked (the whisper encoder).  q (B,S,H,hd); k/v already
+    in the cache layout (B,KV,S,hd) -> (B,S,H,hd).
 
     The model transposes q into the kernel's (B,H,S,hd) layout (one copy
     of q; k and v are transposed once for the cache anyway)."""
     o = flash_attention(q.transpose(1, 2).contiguous(), k_heads, v_heads,
-                        causal=True)
+                        causal=causal)
     return o.transpose(1, 2)
 
 
@@ -140,3 +154,20 @@ def cache_write_window(k_cache, v_cache, new_k, new_v, pos):
     """Write the new entries into their ring slot ``pos % Wc``, in place."""
     return cache_write_plain(k_cache, v_cache, new_k, new_v,
                              torch.remainder(pos, k_cache.shape[2]))
+
+
+# ----------------------------------------------------------------------
+# Cross attention (whisper decoder): static memory, no cache writes.
+# ----------------------------------------------------------------------
+
+def cross_attention(q, k_mem, v_mem):
+    """Unmasked GQA attention of q (B,S,H,hd) over a memory k/v
+    (B,Senc,KV,hd) of any length -> (B,S,H,hd).  Plain PyTorch, f32
+    softmax, the scores widened from the input dtype as the reference
+    does."""
+    B, S, H, hd = q.shape
+    KV = k_mem.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k_mem).float() * (hd ** -0.5)
+    w = torch.softmax(s, dim=-1).to(v_mem.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", w, v_mem).reshape(B, S, H, hd)

@@ -125,6 +125,11 @@ def rms_norm(x, weight, eps: float):
     return out.to(x.dtype)
 
 
+def head_rms_norm(x, weight, eps: float):
+    """Per-head q/k norm (qwen3): x (..., hd), weight (hd,)."""
+    return rms_norm(x, weight, eps)
+
+
 def silu(x):
     return x * torch.sigmoid(x)
 

@@ -1,6 +1,8 @@
 """Decoder LM stack (port of ``repro/models/transformer.py``) for the
 ``attn``, ``ssm`` and ``rec`` layer kinds: prefill with cache, one-token
-decode and ``init_cache``.
+decode and ``init_cache``.  An attention layer's FFN is the SwiGLU MLP, or
+the routed experts for the ``moe`` family (:mod:`.moe`; its aux loss is
+dropped here, as serving has no loss).
 
 Parameters and caches keep the reference's layouts: one kind of layer is a
 ``stack`` with a leading ``layers`` axis; the hybrid family (recurrentgemma)
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import griffin, ssm
+from repro_torch.models import griffin, moe, ssm
 from repro_torch.models.layers import P, rms_norm, stack_spec, swiglu
 
 
@@ -41,7 +43,7 @@ def layer_spec(cfg, kind: str):
         return {"ln1": ln(), "mixer": griffin.rglru_spec(cfg), "ln2": ln(),
                 "mlp": mlp_spec(cfg)}
     return {"ln1": ln(), "attn": attn.attn_spec(cfg), "ln2": ln(),
-            "ffn": mlp_spec(cfg)}
+            "ffn": moe.moe_spec(cfg) if cfg.family == "moe" else mlp_spec(cfg)}
 
 
 def _groups(cfg):
@@ -79,6 +81,13 @@ def _o_proj(o, wo):
     return torch.einsum("bshk,hkd->bsd", o, wo)
 
 
+def _ffn(p, x, cfg):
+    """An attention layer's FFN: the routed experts (moe) or SwiGLU."""
+    if cfg.family == "moe":
+        return moe.moe_ffn(p, x, cfg)[0]
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
 # ======================================================================
 # Single blocks
 # ======================================================================
@@ -106,9 +115,7 @@ def attn_block_fwd(lp, x, cfg, positions, entry):
     else:
         o = attn.prefill_attention(q, kh, vh)
     x = x + _o_proj(o, lp["attn"]["wo"])
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    x = x + swiglu(h2, lp["ffn"]["w_gate"], lp["ffn"]["w_up"],
-                   lp["ffn"]["w_down"])
+    x = x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
     if entry is not None:
         if window and S >= window:
             shift = (S - window) % window
@@ -161,9 +168,7 @@ def attn_block_dec(lp, x, cfg, pos, entry):
         kc, vc = attn.cache_write_plain(entry["k"], entry["v"], k, v, pos)
         o = attn.decode_attention_plain(q, kc, vc, pos)
     x = x + _o_proj(o, lp["attn"]["wo"])
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h2, lp["ffn"]["w_gate"], lp["ffn"]["w_up"],
-                      lp["ffn"]["w_down"])
+    return x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
 
 
 def ssm_block_dec(lp, x, cfg, entry):

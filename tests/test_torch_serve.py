@@ -1,6 +1,7 @@
 """The port's LM server on the CPU: the CLI, the reference's greedy
-ids for the same seed and weights, the serving modes against the
-reference's server, and the families it rejects."""
+ids for the same seed and weights (every family, the vlm and encdec ones
+with the pipeline's patch and frame embeddings), and the serving modes
+against the reference's server."""
 import json
 import sys
 
@@ -19,6 +20,7 @@ from repro.models import LM as RefLM  # noqa: E402
 from repro.launch import serve as ref_serve  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
 
 BATCH, PROMPT, GEN, SEED = 2, 48, 6, 5
 
@@ -42,7 +44,9 @@ def _reference_ids(arch):
             jax.tree_util.tree_map(np.asarray, params), batch["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-370m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-370m", "recurrentgemma-9b",
+                                  "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
+                                  "internvl2-2b", "whisper-tiny"])
 def test_serve_lm_gives_the_reference_ids(arch):
     want, params, prompt = _reference_ids(arch)
     out = serve.serve_lm(get_config(arch, reduced=True), batch=BATCH,
@@ -95,12 +99,23 @@ def test_cli_names_the_options_not_ported_yet(flag, capsys, monkeypatch):
 @pytest.mark.parametrize("arch,family", [
     ("qwen2-moe-a2.7b", "moe"), ("whisper-tiny", "encdec"),
     ("internvl2-2b", "vlm")])
-def test_cli_names_the_families_not_ported_yet(arch, family, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert f"family {family!r}" in err and "ROADMAP A9" in err
+def test_cli_names_the_families_not_ported_yet(arch, family, capsys,
+                                               monkeypatch):
+    """The families the CLI once turned away serve now: the command line
+    runs on the CPU with the reference's weights (the port's seeded init
+    swapped for them) and prints the reference's greedy ids."""
+    want, params, _ = _reference_ids(arch)
+    assert get_config(arch, reduced=True).family == family
+    monkeypatch.setattr(LM, "init",
+                        lambda self, seed=0, dtype=None:
+                        self.load_reference(params))
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                "--gen", str(GEN), "--seed", str(SEED)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"prefill {BATCH}x{PROMPT}: ")
+    assert out[1] == f"sample generated ids: {want[0, :12].tolist()}"
+    assert out[-1] == "ok"
 
 
 def test_cuda_without_a_card_raises():
