@@ -44,6 +44,20 @@ Phases, each printing one JSON line:
             off beside the f32 route); flash and SSD are timed on their
             bf16 (tensor-core) route and on the f32 (CUDA-core) route at the
             same shape, with each launch's device time from torch.profiler;
+   lm_kernels_bwd: flash_attention_bwd against the plain backward
+            formulas (``attention_bwd_ref``) from the forward kernel's own
+            output (held against the plain forward within flash's
+            tolerance) and row log-sum-exp (held against
+            torch.logsumexp of the plain scores: f32 1e-5, bf16 4e-3), at
+            the training shapes (minicpm-2b's q (2,36,1024,64) and
+            demo-100m's (4,12,256,64) causal, yi-6b's GQA 32:4 at hd 128,
+            hd 160 and 256, whisper-tiny's unmasked S 1500, S under one
+            tile, ragged S), f32 within 1e-4 and bf16 within 8e-3 (about
+            two bf16 ulps; the plain formulas in f32 from the same bf16
+            values); two calls give the same bits; timed beside the plain
+            formulas and the backward of scaled_dot_product_attention
+            (torch.autograd.grad), which the port never calls, and the
+            training forward (with the log-sum-exp) beside SDPA's forward;
 5. session: the state-migration path through
             ``repro_torch.launch.notebook.run_notebook`` on the card, two
             sessions under the paper's single-cell policy (the first runs
@@ -122,11 +136,29 @@ Phases, each printing one JSON line:
             attention), stablelm-12b (hd 16, and hd 160), qwen2-moe-a2.7b,
             qwen3-moe-235b-a22b, internvl2-2b and whisper-tiny in f32 on the
             card and on the CPU with the same weights: logits within 1e-4
-            (1e-3 for mamba2), equal greedy ids.
+            (1e-3 for mamba2), equal greedy ids;
+13. train:  the training path through ``repro_torch.launch.train.main``:
+            full minicpm-2b (40 layers, d 2304, vocab 122,753), seeded bf16
+            weights, batch 2 x seq 1024, 4 steps at lr 2e-5, each launching
+            flash_attention and flash_attention_bwd 40 times, finite and
+            falling losses, seconds per step, tokens/s and peak device
+            memory; full demo-100m checkpointed at step 2 (codec none) and
+            resumed for steps 2-3 from the bits of the parameters and
+            optimizer state saved, losses equal to the unbroken run's within
+            1e-3, the hash kernels launched; a reduced mamba2-370m and
+            recurrentgemma-9b training step raise NotImplementedError (no
+            SSD or RG-LRU backward kernel yet);
+14. train_agree: reduced yi-6b, minicpm-2b, qwen2-moe-a2.7b, internvl2-2b
+            and whisper-tiny in f32, one LM.loss and its backward on the
+            card and on the CPU with the same weights: loss within 1e-5,
+            every gradient leaf within 1e-4 of its max-abs, one flash
+            forward and one backward launch per attention layer on the
+            card, none on the CPU; two adamw_update steps on the CPU's
+            gradients on each side, masters within 1e-6 of each max-abs.
 
 Then the ``kernels`` line (each kernel's launches summed over the session,
-socket, fleet, gateway, checkpoint and serve runs, and split by run in
-``launches_by_path``), and last
+socket, fleet, gateway, checkpoint, serve and train runs, and split by run
+in ``launches_by_path``), and last
 ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -598,6 +630,16 @@ VLM_BATCH, VLM_PROMPT = 4, 2048        # internvl2-2b: 256 patches + 1792 text
 WH_BATCH, WH_PROMPT = 4, 384           # whisper-tiny: + 32 stays within 448
 
 
+def plain_f32(q, k, v, causal=True):
+    """Flash attention's plain version on the same values widened to f32
+    (exactly), rounded to the input dtype at the end: the kernel's
+    arithmetic.  The plain version in bf16 also rounds the scores and
+    weights to bf16, which the kernel (like the Pallas kernel) does not."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    return attention_ref(q.float(), k.float(), v.float(),
+                         causal=causal).to(q.dtype)
+
+
 def phase_lm_kernels() -> list[dict]:
     """flash_attention, ssd_scan and rglru_scan against their plain versions
     on the card, at the serve path's shapes, the CPU tests' shapes and ragged
@@ -693,14 +735,6 @@ def phase_lm_kernels() -> list[dict]:
                 # and qwen3-moe's GQA 64:4 at their serve shapes
                 (wh_enc, bf16, False), (wh_enc, f32, False),
                 (wh_dec, bf16, True), (q3_fa, bf16, True)]
-    def plain_f32(q, k, v, causal=True):
-        """The plain version on the same values widened to f32 (exactly),
-        rounded to the input dtype at the end: the kernel's arithmetic.
-        The plain version in bf16 also rounds the scores and weights to
-        bf16, which the kernel (like the Pallas kernel) does not."""
-        return attention_ref(q.float(), k.float(), v.float(),
-                             causal=causal).to(q.dtype)
-
     checked = []
     for (B, H, KV, S, hd), dtype, causal in fa_cases:
         q = randn((B, H, S, hd), dtype)
@@ -913,6 +947,201 @@ def phase_lm_kernels() -> list[dict]:
           "max_abs_err": {f"{k[0]}/{k[1]}": v for k, v in errs.items()},
           "seconds": time.perf_counter() - t_phase})
     return rows
+
+
+# the backward kernel's (atol, rtol): f32 against the plain formulas in f32;
+# bf16 about two bf16 ulps (2**-7 relative) around the outputs' rounding,
+# the plain formulas computing in f32 from the same bf16 values, output and
+# row log-sum-exp.  The forward's row log-sum-exp: the f32 route against
+# torch.logsumexp of the plain scores; the bf16 route sums l from P rounded
+# to bf16, about 2**-9 relative, 2e-3 in the log.
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 8e-3)}
+LSE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (4e-3, 0.0)}
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "minicpm-2b", 2, 1024, 4
+# The CLI's default lr (3e-4) with its one-step warmup (steps // 10) makes
+# full minicpm-2b's loss jump at the third step, with the plain attention
+# path alike: the schedule's curve, not the kernels'; 2e-5 falls at every
+# step (PERF.md §6).
+TRAIN_LR = "2e-5"
+
+
+def phase_flash_bwd() -> list[dict]:
+    """flash_attention_bwd against the plain backward formulas
+    (``attention_bwd_ref``) on the card, from the forward kernel's own
+    output and row log-sum-exp, each held against the plain version first
+    (the output against :func:`plain_f32` within flash's ``TOL``, the
+    log-sum-exp against ``torch.logsumexp`` of the plain scores), at the
+    training shapes (the train phase's: minicpm-2b's q (2,36,1024,64) and
+    full demo-100m's (4,12,256,64), causal; yi-6b's GQA 32:4 at hd 128; hd
+    160 and 256; whisper-tiny's unmasked S 1500; S under one tile; ragged
+    S), f32 and bf16; two calls must give the same bits.  At minicpm-2b's
+    shape, times the kernel, its device time, the plain formulas and the
+    backward of ``scaled_dot_product_attention`` (through
+    ``torch.autograd.grad``; the port never calls it), and likewise the
+    training forward (flash with its log-sum-exp) beside SDPA's forward.
+    Returns its row of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_lse_ref,
+    )
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    mc, yi = get_config(TRAIN_ARCH), get_config("yi-6b")
+    wh, demo = get_config("whisper-tiny"), get_config("demo-100m")
+    main_bwd = (TRAIN_BATCH, mc.num_heads, mc.num_kv_heads, TRAIN_SEQ,
+                mc.resolved_head_dim)
+    demo_bwd = (DEMO_BATCH, demo.num_heads, demo.num_kv_heads, DEMO_SEQ,
+                demo.resolved_head_dim)
+    yi_bwd = (1, yi.num_heads, yi.num_kv_heads, TRAIN_SEQ,
+              yi.resolved_head_dim)
+    wh_bwd = (2, wh.num_heads, wh.num_kv_heads, wh.encoder_seq,
+              wh.resolved_head_dim)
+    cases = [(main_bwd, bf16, True), (main_bwd, f32, True),
+             (demo_bwd, bf16, True), (demo_bwd, f32, True),
+             (yi_bwd, bf16, True), (yi_bwd, f32, True),
+             ((1, 8, 2, 333, 160), bf16, True), ((1, 8, 2, 333, 160), f32, True),
+             ((1, 4, 1, 200, 256), bf16, True), ((1, 4, 1, 200, 256), f32, True),
+             ((1, 4, 1, 97, 256), f32, False), ((1, 4, 2, 130, 160), bf16, False),
+             (wh_bwd, bf16, False), (wh_bwd, f32, False),
+             ((2, 4, 2, 17, 128), bf16, True), ((1, 4, 2, 1, 64), f32, True),
+             ((1, 2, 1, 5, 32), bf16, True),
+             ((1, 4, 2, 1025, 64), bf16, True), ((1, 4, 2, 1025, 64), f32, True),
+             ((2, 4, 2, 77, 32), f32, False), ((1, 2, 2, 130, 16), bf16, True),
+             ((2, 8, 2, 40, 64), f32, True), ((1, 4, 4, 24, 16), f32, False)]
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    lse_errs = {"float32": 0.0, "bfloat16": 0.0}
+    o_errs = {"float32": 0.0, "bfloat16": 0.0}
+    checked = []
+    for (B, H, KV, S, hd), dtype, causal in cases:
+        name = str(dtype).removeprefix("torch.")
+        q = randn((B, H, S, hd), dtype)
+        k, v = randn((B, KV, S, hd), dtype), randn((B, KV, S, hd), dtype)
+        do = randn((B, H, S, hd), dtype)
+        o, lse = fk.flash_attention_kernel(q, k, v, causal=causal,
+                                           with_lse=True)
+        want_o = plain_f32(q, k, v, causal)
+        atol, rtol = TOL[("flash_attention", name)]
+        torch.testing.assert_close(o.float(), want_o.float(), atol=atol,
+                                   rtol=rtol, msg=lambda m: f"o: {m}")
+        o_errs[name] = max(o_errs[name],
+                           float((o.float() - want_o.float()).abs().max()))
+        del want_o
+        want_lse = attention_lse_ref(q.float(), k.float(), causal=causal)
+        atol, rtol = LSE_TOL[name]
+        torch.testing.assert_close(lse, want_lse, atol=atol, rtol=rtol)
+        lse_errs[name] = max(lse_errs[name],
+                             float((lse - want_lse).abs().max()))
+        got = fk.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                            causal=causal)
+        want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        atol, rtol = BWD_TOL[name]
+        err = 0.0
+        for what, a, b in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                       rtol=rtol, msg=lambda m: f"{what}: {m}")
+            err = max(err, float((a.float() - b.float()).abs().max()))
+        again = fk.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                              causal=causal)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {B, H, KV, S, hd}: "
+                                 f"two calls differ")
+        errs[name] = max(errs[name], err)
+        checked.append([B, H, KV, S, hd, name, "causal" if causal else "full",
+                        err])
+
+    # timed at minicpm-2b's training shape, bf16 (the train phase's route)
+    B, H, KV, S, hd = main_bwd
+    q = randn((B, H, S, hd), bf16)
+    k, v = randn((B, KV, S, hd), bf16), randn((B, KV, S, hd), bf16)
+    do = randn((B, H, S, hd), bf16)
+    o, lse = fk.flash_attention_kernel(q, k, v, with_lse=True)
+
+    # the training forward (flash with its log-sum-exp write) at this shape,
+    # beside its plain version (output and log-sum-exp) and SDPA's forward
+    def fwd():
+        return fk.flash_attention_kernel(q, k, v, causal=True, with_lse=True)
+
+    pairs = S * (S + 1) // 2
+    fwd_flops = 4 * B * H * pairs * hd
+    fb, fby = bound(2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+                    + 4 * B * H * S, fwd_flops, BF16_OPS_PER_S)
+    try:
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), REPS)
+    except TypeError:           # a torch without enable_gqa (here H == KV)
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), REPS)
+    forward = {"ms": time_ms(fwd, REPS), "device_kernels_ms":
+               device_kernels_ms(fwd), "plain_ms": time_ms(
+                   lambda: (plain_f32(q, k, v),
+                            attention_lse_ref(q.float(), k.float())),
+                   max(2, REPS // 10)),
+               "bound_ms": fb, "bound_by": fby, "library_ms": sdpa_fwd,
+               "library_call": "scaled_dot_product_attention(is_causal, "
+                               "enable_gqa), no log-sum-exp"}
+
+    def kern(*t):
+        return fk.flash_attention_bwd_kernel(*t, causal=True)
+
+    ms = time_ms(lambda: kern(q, k, v, o, lse, do), REPS)
+    per_kernel = device_kernels_ms(lambda: kern(q, k, v, o, lse, do))
+    f32_in = [t.float() for t in (q, k, v, o)] + [lse, do.float()]
+    ms_f32 = time_ms(lambda: kern(*f32_in), max(2, REPS // 4))
+    del f32_in
+    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
+                       max(2, REPS // 10))
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+        library_call = ("autograd.grad of scaled_dot_product_attention"
+                        "(is_causal, enable_gqa)")
+    except TypeError:           # a torch without enable_gqa (here H == KV)
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        library_call = "autograd.grad of scaled_dot_product_attention(is_causal)"
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True), REPS)
+    del out, qs, ks, vs
+    flops = int(2.5 * fwd_flops)
+    nbytes = 2 * (4 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
+    b, by = bound(nbytes, flops, BF16_OPS_PER_S)
+    torch.cuda.synchronize()
+    emit({"phase": "lm_kernels_bwd", "checked": checked,
+          "tolerances": {"flash_attention_bwd": BWD_TOL, "lse": LSE_TOL,
+                         "o": {n: TOL[("flash_attention", n)]
+                               for n in ("float32", "bfloat16")}},
+          "max_abs_err": errs, "lse_max_abs_err": lse_errs,
+          "o_max_abs_err": o_errs,
+          "bit_identical_reruns": True, "tf32": False,
+          "seconds": time.perf_counter() - t_phase})
+    return [{"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             # no Pallas backward: the reference differentiates its XLA
+             # attention (train.py:63, jax.value_and_grad)
+             "replaces": "src/repro/models/attention.py:54",
+             "launches": 0, "max_abs_err": max(errs.values()),
+             "max_abs_err_f32": errs["float32"],
+             "max_abs_err_bf16": errs["bfloat16"],
+             "lse_max_abs_err": lse_errs, "o_max_abs_err": o_errs,
+             "ms": ms, "ms_f32": ms_f32, "device_kernels_ms": per_kernel,
+             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+             "library_ms": library_ms, "library_call": library_call,
+             "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
+             "forward_with_lse": forward, "flops": flops, "bytes": nbytes,
+             "checked_shapes": checked}]
 
 
 class SyncWatch:
@@ -2044,7 +2273,8 @@ def card_line() -> str:
 
 
 def lm_kernels():
-    """The LM kernels' wrapper modules: flash_attention, ssd_scan, rglru_scan."""
+    """The LM kernels' wrapper modules: flash_attention (forward and
+    backward), ssd_scan, rglru_scan."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rg_lru import kernel as rk
     from repro_torch.kernels.ssd_scan import kernel as sk
@@ -2066,16 +2296,19 @@ def expected_launches(cfg, prompt: int) -> dict:
     banded = bool(w) and prompt > w and prompt % w == 0
     encoder = cfg.encoder_layers if cfg.family == "encdec" else 0
     return {"flash_attention": (0 if banded else kinds.count("attn")) + encoder,
+            "flash_attention_bwd": 0,
             "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
 
 
 def flash_only(n: int) -> dict:
-    return {"flash_attention": n, "ssd_scan": 0, "rglru_scan": 0}
+    return {"flash_attention": n, "flash_attention_bwd": 0, "ssd_scan": 0,
+            "rglru_scan": 0}
 
 
 # one prefill's launches, stated where the config alone decides them
 SERVE_LAUNCHES = {
-    "recurrentgemma-9b": {"flash_attention": 12, "ssd_scan": 0, "rglru_scan": 26},
+    "recurrentgemma-9b": {"flash_attention": 12, "flash_attention_bwd": 0,
+                          "ssd_scan": 0, "rglru_scan": 26},
     "stablelm-12b": flash_only(40),
     "qwen2-moe-a2.7b": flash_only(24),
     "qwen3-moe-235b-a22b": flash_only(QWEN3_LAYERS),
@@ -2258,6 +2491,311 @@ def phase_serve_agree() -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+DEMO_BATCH, DEMO_SEQ = 4, 256          # the checkpoint leg: full demo-100m
+TRAIN_AGREE = ("yi-6b", "minicpm-2b", "qwen2-moe-a2.7b", "internvl2-2b",
+               "whisper-tiny")
+TRAIN_AGREE_SEQ = 48
+# a resumed run's losses against the unbroken run's, on one card: they
+# agreed bit for bit in every run so far (PERF.md §6); the margin leaves
+# room only for a reduction order that changes between two runs
+RESUME_LOSS_TOL = 1e-3
+
+
+def finite(x: float) -> bool:
+    return x == x and abs(x) != float("inf")
+
+
+def phase_train(tmp: Path) -> dict:
+    """The training path through ``repro_torch.launch.train.main`` on the
+    card:
+    1. full minicpm-2b (40 layers, d 2304, vocab 122,753 padded to 122,880,
+       tied embeddings, the WSD schedule), seeded bf16 weights, batch 2 x
+       seq 1024, 4 steps at lr 2e-5: every step launches flash_attention 40
+       times (forward with the row log-sum-exp) and flash_attention_bwd 40
+       times;
+       every loss and grad norm finite, the last loss below the first;
+       prints seconds per step (and its split: the forward and the AdamW
+       update each timed between two synchronises, the backward the rest),
+       tokens per second and the peak device memory;
+    2. full demo-100m, 4 steps with a checkpoint every 2 (codec ``none``);
+       the checkpoint of step 2 (the later manifest removed, as if the run
+       had stopped there) resumes for steps 2 and 3: the parameters and
+       optimizer state (master, m, v, step) the resumed run starts from
+       have the bits the unbroken run held after step 2, and both steps'
+       losses equal the unbroken run's within 1e-3; the hash kernels
+       launch;
+    3. a reduced mamba2-370m and a reduced recurrentgemma-9b training step
+       raise NotImplementedError (no SSD or RG-LRU backward kernel yet)
+       before their scan launches.
+    Returns the kernels' launches on the training path."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.reducer import tree_flatten_with_path
+    from repro_torch.launch import train as tr
+    from repro_torch.models import LM
+    from repro_torch.models.layers import param_count
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_state_kernels()
+    for m in lm_kernels():
+        m.reset_launches()
+
+    # per-step launches, and the host time of each step's forward (the
+    # loss) and AdamW update, each between two synchronises: the smoke wraps
+    # the CLI's step function, LM.loss and adamw_update
+    per_step, split = [], []
+    step_fn, loss_fn, update_fn = tr.train_step, LM.loss, tr.adamw_update
+    # the (params, opt) trees handed to the steps whose index (counted from
+    # the last ``per_step.clear()``) is a key, copied before the step
+    # updates them in place
+    states: dict[int, list] = {}
+
+    def counted(lm, tc, params, opt, batch):
+        if len(per_step) in states:
+            states[len(per_step)] = [
+                (p, x.detach().clone()) for p, x in
+                tree_flatten_with_path({"params": params,
+                                        "opt": opt._asdict()})]
+        before = lm_launches()
+        out = step_fn(lm, tc, params, opt, batch)
+        per_step.append({k: n - before[k] for k, n in lm_launches().items()})
+        return out
+
+    def timed(fn, what):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split.append((what, time.perf_counter() - t0))
+            return out
+        return run
+
+    def cli(argv) -> tuple[list[dict], str]:
+        out = io.StringIO()
+        tr.train_step, tr.adamw_update = counted, timed(update_fn, "optimizer")
+        LM.loss = timed(loss_fn, "forward")
+        try:
+            with contextlib.redirect_stdout(out):
+                hist = tr.main([*argv, "--device", "cuda"])
+        finally:
+            tr.train_step, tr.adamw_update, LM.loss = \
+                step_fn, update_fn, loss_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        return hist, out.getvalue()
+
+    # 1. full minicpm-2b
+    cfg = get_config(TRAIN_ARCH)
+    n_layers = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist, text = cli(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                      "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                      "--lr", TRAIN_LR])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": n_layers, "flash_attention_bwd": n_layers,
+            "ssd_scan": 0, "rglru_scan": 0}
+    if len(hist) != TRAIN_STEPS or per_step != [want] * TRAIN_STEPS:
+        raise AssertionError(f"{TRAIN_ARCH}: launches per step {per_step}, "
+                             f"expected {want} x {TRAIN_STEPS}")
+    losses = [h["loss"] for h in hist]
+    if not all(finite(h["loss"]) and finite(h["grad_norm"]) for h in hist) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"{TRAIN_ARCH}: losses {losses}, grad norms "
+                             f"{[h['grad_norm'] for h in hist]}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    secs = [h["seconds"] for h in hist]
+    steady = statistics.median(secs[1:])
+    fwd = [t for w, t in split if w == "forward"]
+    opt = [t for w, t in split if w == "optimizer"]
+    steps_split = [{"forward": f, "optimizer": o,
+                    "backward_and_rest": t - f - o}
+                   for f, o, t in zip(fwd, opt, secs)]
+    emit({"phase": "train", "arch": TRAIN_ARCH, "card": card_line(),
+          "params": param_count(LM(cfg, max_seq=TRAIN_SEQ,
+                                   device="cpu").spec),
+          "layers": n_layers, "d_model": cfg.d_model,
+          "vocab": [cfg.vocab_size, cfg.padded_vocab], "dtype": "bfloat16",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+          "lrs": [h["lr"] for h in hist], "seconds_per_step": secs,
+          "steady_seconds_per_step": steady,
+          "tokens_per_s": [tokens / t for t in secs],
+          "steady_tokens_per_s": tokens / steady,
+          "split_seconds": steps_split, "lr": float(TRAIN_LR),
+          "peak_memory_bytes": peak, "wall_seconds_with_init": wall,
+          "launches_per_step": want, "cli": text.splitlines()})
+
+    # 2. the checkpoint leg, full demo-100m
+    t_leg = time.perf_counter()
+    per_step.clear()
+    split.clear()
+    states.update({2: [], 4: []})   # the unbroken run's step 2, the resumed
+    hash_before = state_kernel_counts()
+    ckdir = tmp / "train-ckpt"
+    argv = ["--arch", "demo-100m", "--steps", "4", "--batch", str(DEMO_BATCH),
+            "--seq", str(DEMO_SEQ), "--ckpt-codec", "none"]
+    full, text = cli([*argv, "--ckpt-dir", str(ckdir), "--ckpt-every", "2"])
+    cut = tmp / "train-ckpt-at2"
+    shutil.copytree(ckdir, cut)
+    os.remove(cut / "manifest-00000004.json")
+    t_resume = time.perf_counter()
+    resumed, text2 = cli([*argv, "--ckpt-dir", str(cut), "--resume",
+                          "--ckpt-every", "100"])
+    t_resume = time.perf_counter() - t_resume
+    hashes = {k: n - hash_before.get(k, 0)
+              for k, n in state_kernel_counts().items()}
+    if "resumed from step 2" not in text2 or \
+            [h["step"] for h in resumed] != [2, 3]:
+        raise AssertionError(f"demo-100m resume: {text2}")
+    saved, restored = states.pop(2), states.pop(4)
+    if [p for p, _ in saved] != [p for p, _ in restored] or not all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for (_, a), (_, b) in zip(saved, restored)):
+        raise AssertionError("demo-100m resume: the restored parameters or "
+                             "optimizer state differ from those saved")
+    n_state = len(saved)
+    del saved, restored
+    diffs = [abs(r["loss"] - f["loss"]) for r, f in zip(resumed, full[2:])]
+    if max(diffs) > RESUME_LOSS_TOL:
+        raise AssertionError(f"demo-100m: resumed losses "
+                             f"{[h['loss'] for h in resumed]}, unbroken "
+                             f"{[h['loss'] for h in full[2:]]}")
+    if not hashes.get("block_hash_fold", 0) + hashes.get("block_hash", 0):
+        raise AssertionError(f"demo-100m checkpoints: no hash launch {hashes}")
+    emit({"phase": "train", "arch": "demo-100m", "leg": "checkpoint",
+          "card": card_line(), "batch": DEMO_BATCH, "seq": DEMO_SEQ,
+          "losses": [h["loss"] for h in full],
+          "resumed_losses": [h["loss"] for h in resumed],
+          "resumed_max_abs_diff": max(diffs), "tolerance": RESUME_LOSS_TOL,
+          "restored_leaves_bit_equal": n_state,
+          "hash_launches": hashes, "resume_wall_seconds": t_resume,
+          "cli": text.splitlines() + text2.splitlines(),
+          "seconds": time.perf_counter() - t_leg})
+
+    # 3. the families whose scans have no backward kernel yet
+    raised = {}
+    for arch, what in (("mamba2-370m", "SSD"), ("recurrentgemma-9b",
+                                                 "RG-LRU")):
+        before = lm_launches()
+        try:
+            cli(["--arch", arch, "--reduced", "--steps", "1", "--batch", "2",
+                 "--seq", "64"])
+        except NotImplementedError as e:
+            if what not in str(e) or "queue A" not in str(e):
+                raise
+            raised[arch] = str(e)
+        else:
+            raise AssertionError(f"{arch}: a training step on the card "
+                                 f"returned")
+        after = lm_launches()
+        if after["ssd_scan"] != before["ssd_scan"] or \
+                after["rglru_scan"] != before["rglru_scan"]:
+            raise AssertionError(f"{arch}: a scan launched under grad")
+    launches = {**state_kernel_counts(), **lm_launches()}
+    emit({"phase": "train", "raised": raised, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_train_agree() -> None:
+    """Reduced yi-6b, minicpm-2b, qwen2-moe-a2.7b, internvl2-2b and
+    whisper-tiny in f32 with the same weights and batch: one ``LM.loss``
+    and its backward on the card (flash forward and backward kernels) and
+    on the CPU (the plain versions, which the CPU tests hold to the JAX
+    reference): the loss within 1e-5, every gradient leaf within 1e-4 of
+    its max-abs, exactly one forward and one backward flash launch per
+    attention layer on the card and none on the CPU; then two
+    ``adamw_update`` steps on each side fed the CPU's gradients: every
+    master weight within 1e-6 of its leaf's max-abs."""
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.reducer import tree_flatten_with_path, \
+        tree_map_with_path
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_update, init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    loss_errs, grad_errs, master_errs, ran = {}, {}, {}, {}
+    for arch in TRAIN_AGREE:
+        cfg = get_config(arch, reduced=True)
+        S = TRAIN_AGREE_SEQ
+        params = LM(cfg, max_seq=S, device="cpu").init(SEED, torch.float32)
+        batch = TokenPipeline(cfg, ShapeConfig("t", "train", S, 2),
+                              seed=SEED).train_batch(0)
+        fwd = expected_launches(cfg, S)["flash_attention"]
+        loss, grads, trees = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            lm = LM(cfg, max_seq=S, device=dev)
+            p = lm.load_reference(params)
+            tree_map_with_path(lambda _, t: t.requires_grad_(True), p)
+            before = lm_launches()
+            value, _ = lm.loss(p, batch)
+            value.backward()
+            got = {k: n - before[k] for k, n in lm_launches().items()}
+            want = ({"flash_attention": fwd, "flash_attention_bwd": fwd,
+                     "ssd_scan": 0, "rglru_scan": 0} if dev == "cuda"
+                    else {k: 0 for k in got})
+            if got != want:
+                raise AssertionError(f"{arch} on {dev}: launches {got}, "
+                                     f"expected {want}")
+            loss[dev] = float(value.detach())
+            grads[dev] = {k: t.grad.detach().cpu()
+                          for k, t in tree_flatten_with_path(p)}
+            trees[dev] = p
+        if abs(loss["cuda"] - loss["cpu"]) > 1e-5:
+            raise AssertionError(f"{arch}: loss {loss}")
+        worst = 0.0
+        for k, want in grads["cpu"].items():
+            err = float((grads["cuda"][k] - want).abs().max())
+            scale = max(float(want.abs().max()), 1e-30)
+            if err > 1e-4 * scale:
+                raise AssertionError(f"{arch} grad {k}: {err} of {scale}")
+            worst = max(worst, err / scale)
+        tc = TrainConfig(warmup_steps=1, total_steps=4, schedule=cfg.schedule)
+        masters = {}
+        for dev, p in trees.items():
+            g = tree_map_with_path(
+                lambda path, t: grads["cpu"][path].to(t.device), p)
+            opt = init_opt_state(p)
+            for _ in range(2):
+                opt, p, _ = adamw_update(tc, opt, g, p)
+            masters[dev] = dict(tree_flatten_with_path(opt.master))
+        mworst = 0.0
+        for k, want in masters["cpu"].items():
+            err = float((masters["cuda"][k].cpu() - want).abs().max())
+            scale = max(float(want.abs().max()), 1e-30)
+            if err > 1e-6 * scale:
+                raise AssertionError(f"{arch} master {k}: {err} of {scale}")
+            mworst = max(mworst, err / scale)
+        loss_errs[arch] = abs(loss["cuda"] - loss["cpu"])
+        grad_errs[arch], master_errs[arch] = worst, mworst
+        ran[arch] = {"flash_attention": fwd, "flash_attention_bwd": fwd}
+    emit({"phase": "train_agree", "dtype": "float32", "seq": TRAIN_AGREE_SEQ,
+          "tolerance": {"loss": 1e-5, "grad_of_max_abs": 1e-4,
+                        "master_of_max_abs": 1e-6},
+          "loss_abs_err": loss_errs, "grad_err_of_max_abs": grad_errs,
+          "master_err_of_max_abs": master_errs, "card_launches": ran,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2277,7 +2815,7 @@ def main() -> int:
 
     phase_card()
     phase_build()
-    rows = phase_kernels() + phase_lm_kernels()
+    rows = phase_kernels() + phase_lm_kernels() + phase_flash_bwd()
     if args.kernels_only:
         emit({"kernels": rows})
         return 0
@@ -2291,6 +2829,9 @@ def main() -> int:
         by_path["checkpoint"] = phase_checkpoint(Path(tmp))
     by_path["serve"] = phase_serve()
     phase_serve_agree()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        by_path["train"] = phase_train(Path(tmp))
+    phase_train_agree()
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()
                                  if r["name"] in n}

@@ -55,8 +55,14 @@ SIGNATURES = {
         "dequantize_rows_bf16": (_P, _P, _P, _N, _P),
     },
     "flash_attention": {
-        "flash_attention_f32": (_P, _P, _P, _P, _N, _N, _N, _N, _N, _I, _P),
-        "flash_attention_bf16": (_P, _P, _P, _P, _N, _N, _N, _N, _N, _I, _P),
+        "flash_attention_f32": (_P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _I, _P),
+        "flash_attention_bf16": (_P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _I, _P),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _N, _N, _N, _N, _N, _I, _P),
+        "flash_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _N, _N, _N, _N, _N, _I, _P),
     },
     "ssd_scan": {
         "ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
@@ -147,6 +153,12 @@ def check_tensor(t, what: str, dtypes, shape) -> None:
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{what}: must be contiguous and 16-byte aligned")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these tensors: a wrapper
+    whose kernel has no backward refuses such a call on a card."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def check(err: int, what: str) -> None:

@@ -8,7 +8,8 @@
 // output is acc / max(l, 1e-30) in q's dtype.  Under the causal mask the kv tiles entirely
 // above the diagonal are skipped, as the Pallas kernel's `pl.when` skips them.  Unlike the
 // Pallas kernel (which asserts S % block == 0), any S >= 1 is taken: the ragged last q and kv
-// tiles are masked.
+// tiles are masked.  For training, both routes optionally write each row's log-sum-exp of its
+// scaled, masked scores (natural log; f32 (B,H,S)), the input of flash_attention_bwd.cu.
 //
 // What bounds it: operations.  Causal attention does 4*B*H*(S(S+1)/2)*hd FLOPs over
 // 4*B*H*S*hd elements of input and output, hundreds of operations per byte at S in the
@@ -55,6 +56,7 @@ namespace {
 
 constexpr float kNeg = -1e30f;   // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------------------------------------
 // f32 route: CUDA cores
@@ -96,8 +98,8 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int H, int KV, int S,
-                     int causal, float scale) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int H, int KV, int S, int causal, float scale) {
   constexpr int LD = HD + 1;
   constexpr int LDP = kBK + 1;
   constexpr int DPT = HD / 16;     // output columns per thread
@@ -207,12 +209,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DPT; ++d)
       ob[static_cast<long long>(qi) * HD + tx + 16 * d] = acc[i][d] / denom;
+    // the row's log-sum-exp of the scaled scores (m is their max, l the sum of exp(s - m))
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + qi] = m[i] + logf(denom);
   }
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, long long B, long long H,
-               long long KV, long long S, int causal, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, long long B,
+               long long H, long long KV, long long S, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes_f32<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -223,8 +228,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, long long B
                   static_cast<unsigned>(B));
   flash_fwd_f32_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<int>(H), static_cast<int>(KV), static_cast<int>(S),
-      causal, static_cast<float>(1.0 / sqrt(static_cast<double>(HD))));  // f32(hd**-0.5)
+      static_cast<float*>(o), lse, static_cast<int>(H), static_cast<int>(KV),
+      static_cast<int>(S), causal,
+      static_cast<float>(1.0 / sqrt(static_cast<double>(HD))));  // f32(hd**-0.5)
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,8 +258,8 @@ struct TcCfg {
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int B, int H, int KV,
-                      int S, int n_qt, int causal, float scale_log2) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                      int B, int H, int KV, int S, int n_qt, int causal, float scale_log2) {
   using Cfg = TcCfg<HD>;
   constexpr int BK = Cfg::BK, LD = Cfg::LD, TILE = Cfg::TILE;
   constexpr int NT = BK / 8;     // n8 tiles of a score row block
@@ -428,6 +434,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  // the rows' log-sum-exp of the scaled scores, natural log: m is in the exp2 domain
+  if (lse != nullptr && t == 0) {
+    float* lrow = lse + (static_cast<long long>(b) * H + h) * S;
+    if (row0 < S) lrow[row0] = m0 * kLn2 + logf(d0);
+    if (row1 < S) lrow[row1] = m1 * kLn2 + logf(d1);
+  }
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
     const int col = d * 8 + 2 * t;
@@ -441,8 +453,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, long long B, long long H,
-                long long KV, long long S, int causal, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, long long B,
+                long long H, long long KV, long long S, int causal, cudaStream_t stream) {
   using Cfg = TcCfg<HD>;
   const long long n_qt = (S + kTcBQ - 1) / kTcBQ;
   if (n_qt * H * B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -455,8 +467,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, long long 
   flash_fwd_bf16_kernel<HD><<<static_cast<unsigned>(n_qt * H * B), kTcThreads, Cfg::SMEM,
                               stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<int>(B), static_cast<int>(H), static_cast<int>(KV),
-      static_cast<int>(S), static_cast<int>(n_qt), causal, scale_log2);
+      static_cast<bf16*>(o), lse, static_cast<int>(B), static_cast<int>(H),
+      static_cast<int>(KV), static_cast<int>(S), static_cast<int>(n_qt), causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -465,39 +477,45 @@ bool bad_sizes(long long H, long long KV) { return KV <= 0 || H % KV != 0; }
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  q/o: (B,H,S,hd); k/v: (B,KV,S,hd); one dtype for all
-// four, contiguous (the wrapper checks).  hd in {16, 32, 64, 128, 160, 256}.  Returns a cudaError_t.
+// four, contiguous (the wrapper checks).  hd in {16, 32, 64, 128, 160, 256}.  lse: null, or an
+// f32 (B,H,S) buffer that takes each row's log-sum-exp (the backward's input).  Returns a
+// cudaError_t.
 extern "C" {
 
-int flash_attention_f32(const void* q, const void* k, const void* v, void* o, long long B,
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                        long long B,
                         long long H, long long KV, long long S, long long hd, int causal,
                         void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (bad_sizes(H, KV)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 16: return launch_f32<16>(q, k, v, o, B, H, KV, S, causal, st);
-    case 32: return launch_f32<32>(q, k, v, o, B, H, KV, S, causal, st);
-    case 64: return launch_f32<64>(q, k, v, o, B, H, KV, S, causal, st);
-    case 128: return launch_f32<128>(q, k, v, o, B, H, KV, S, causal, st);
-    case 160: return launch_f32<160>(q, k, v, o, B, H, KV, S, causal, st);
-    case 256: return launch_f32<256>(q, k, v, o, B, H, KV, S, causal, st);
+    case 16: return launch_f32<16>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 32: return launch_f32<32>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 64: return launch_f32<64>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 128: return launch_f32<128>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 160: return launch_f32<160>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 256: return launch_f32<256>(q, k, v, o, l, B, H, KV, S, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, long long B,
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                         long long B,
                          long long H, long long KV, long long S, long long hd, int causal,
                          void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (bad_sizes(H, KV)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 16: return launch_bf16<16>(q, k, v, o, B, H, KV, S, causal, st);
-    case 32: return launch_bf16<32>(q, k, v, o, B, H, KV, S, causal, st);
-    case 64: return launch_bf16<64>(q, k, v, o, B, H, KV, S, causal, st);
-    case 128: return launch_bf16<128>(q, k, v, o, B, H, KV, S, causal, st);
-    case 160: return launch_bf16<160>(q, k, v, o, B, H, KV, S, causal, st);
-    case 256: return launch_bf16<256>(q, k, v, o, B, H, KV, S, causal, st);
+    case 16: return launch_bf16<16>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 32: return launch_bf16<32>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 64: return launch_bf16<64>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 128: return launch_bf16<128>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 160: return launch_bf16<160>(q, k, v, o, l, B, H, KV, S, causal, st);
+    case 256: return launch_bf16<256>(q, k, v, o, l, B, H, KV, S, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

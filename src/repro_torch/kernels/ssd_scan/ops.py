@@ -1,11 +1,16 @@
 """SSD scan with the reference wrapper's signature: pre-arranges ``x*dt``
 and the within-chunk cumsums as ``repro/kernels/ssd_scan/ops.py`` does, then
 a tensor on the CPU goes to the plain version (:func:`.ref.ssd_scan_ref`),
-a tensor on a CUDA device to the CUDA kernel, which launches or raises."""
+a tensor on a CUDA device to the CUDA kernel, which launches or raises.
+
+The kernel has no backward yet: on a card, a call that needs a gradient
+raises ``NotImplementedError`` before anything launches (the output of a
+forward-only launch would carry no gradient back)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -32,6 +37,12 @@ def arrange(x, dt, A, B_in, C_in, chunk: int):
 
 def ssd_scan(x, dt, A, B_in, C_in, *, chunk: int = 256):
     """Returns (y (B,S,H,P), final_state (B,H,P,N) in x's dtype)."""
+    if x.device.type != "cpu" and _build.needs_grad(x, dt, A, B_in, C_in):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet: training the ssm family on "
+            "a card waits for the SSD scan's backward kernel (ROADMAP.md "
+            "queue A, item 1); call it under torch.no_grad(), or train on "
+            "the CPU")
     B, S, H, P = x.shape
     xdt, Bm, Cm, cums = arrange(x, dt, A, B_in, C_in, chunk)
     if x.device.type == "cpu":

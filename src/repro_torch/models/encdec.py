@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import P, embed_spec, rms_norm, stack_spec, swiglu
-from repro_torch.models.transformer import _o_proj, layer_views, mlp_spec
+from repro_torch.models.transformer import _o_proj, layer_views, mlp_spec, unstack
 
 
 def enc_layer_spec(cfg):
@@ -60,8 +60,7 @@ def encoder_forward(params, frames, cfg):
     Senc = frames.shape[1]
     frames = frames.to(params["embed"].dtype)   # the stub frontend emits f32
     x = frames + params["enc_pos"][:Senc].to(frames.dtype)
-    for i in range(cfg.encoder_layers):
-        lp = layer_views(params["encoder"], i)
+    for lp in unstack(params["encoder"]):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["attn"], h, cfg, None)
         o = attn.prefill_attention(q, k.transpose(1, 2).contiguous(),
@@ -82,8 +81,7 @@ def decoder_forward(params, x, enc_out, cfg, positions, cache=None):
     :func:`init_cache`, at least S self slots, Senc cross slots) when
     given.  Returns x."""
     S = x.shape[1]
-    for i in range(cfg.num_layers):
-        lp = layer_views(params["decoder"], i)
+    for i, lp in enumerate(unstack(params["decoder"])):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions)
         kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
@@ -106,8 +104,7 @@ def decoder_forward(params, x, enc_out, cfg, positions, cache=None):
 def decoder_decode(params, x, cfg, pos, cache):
     """One-token decode; cache entries per layer: self_k/self_v
     (B,KV,S,hd), written in place, and cross_k/cross_v (B,KV,Senc,hd)."""
-    for i in range(cfg.num_layers):
-        lp = layer_views(params["decoder"], i)
+    for i, lp in enumerate(unstack(params["decoder"])):
         c = layer_views(cache["stack"], i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["attn"], h, cfg, pos[:, None])

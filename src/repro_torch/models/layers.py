@@ -198,7 +198,7 @@ def causal_conv1d(x, w, state=None, activation: bool = True):
 
 
 # ----------------------------------------------------------------------
-# Embedding / logits (vocab padded to a multiple of 256)
+# Embedding / logits / loss (vocab padded to a multiple of 256)
 # ----------------------------------------------------------------------
 
 def embed_spec(cfg):
@@ -211,3 +211,15 @@ def embed_lookup(table, ids):
 
 def logits_from_embed(x, table):
     return x @ table.T
+
+
+def softmax_xent(logits, labels, vocab_size: int):
+    """Mean next-token cross entropy over tokens, in f32; the padded-vocab
+    columns (``>= vocab_size``) are set to -1e30 (never -inf), so they add
+    nothing to the log-sum-exp and get exactly 0 gradient."""
+    lf = logits.float()
+    col = torch.arange(lf.shape[-1], device=lf.device)
+    lf = torch.where(col < vocab_size, lf, lf.new_full((), -1e30))
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()

@@ -7,15 +7,20 @@ with cross attention).
 
     lm = LM(cfg, max_seq=4096, device="cuda")
     lm.init(seed)                        # or lm.load_reference(numpy tree)
+    loss, metrics = lm.loss(params, {"tokens": tokens})   # (B, S+1) tokens
     logits, cache = lm.prefill(tokens, cache_len=S + gen,
                                vision_embeds=..., encoder_frames=...)
     logits, cache = lm.decode_step(cache, token)
 
 The parameters live on the LM (``lm.params``, the reference's tree of
-stacked leaves) and are inference-only: no autograd, no loss yet (LM
-training is a later slice).  Prefill attention, the forward SSD scan and
-the RG-LRU scan go through the hand-written CUDA kernels on a card, their
-plain versions on the CPU.
+stacked leaves).  ``loss`` and ``forward`` take an explicit parameter tree
+(``lm.params`` by default), so that autograd sees the leaves an optimizer
+owns (:mod:`repro_torch.launch.train`); ``prefill`` and ``decode_step``
+serve and build no autograd graph.  Prefill attention, the forward SSD
+scan and the RG-LRU scan go through the hand-written CUDA kernels on a
+card, their plain versions on the CPU.  Under grad on a card, attention
+runs flash's forward and backward kernels; the SSD and RG-LRU kernels
+have no backward yet and raise there.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from repro_torch.models import encdec, transformer
 from repro_torch.models.convert import params_from_reference, tensor_from_numpy
 from repro_torch.models.layers import (
     P, embed_lookup, embed_spec, init_params, logits_from_embed, rms_norm,
+    softmax_xent,
 )
 
 
@@ -78,35 +84,36 @@ class LM:
             return a.to(self.device)
         return tensor_from_numpy(a, self.device)
 
-    def _hidden(self, tokens, cache, vision_embeds=None, encoder_frames=None):
+    def _hidden(self, params, tokens, cache, vision_embeds=None,
+                encoder_frames=None):
+        """The final-normed hidden states (B, S_total, d) and the moe aux
+        loss (an f32 zero for the other families)."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = embed_lookup(self.params["embed"], tokens)
+        x = embed_lookup(params["embed"], tokens)
         if cfg.family == "encdec":
             enc = encdec.encoder_forward(
-                self.params, self._input(encoder_frames, "encoder_frames"),
-                cfg)
-            x = x + self.params["dec_pos"][:x.shape[1]][None].to(x.dtype)
+                params, self._input(encoder_frames, "encoder_frames"), cfg)
+            x = x + params["dec_pos"][:x.shape[1]][None].to(x.dtype)
         elif cfg.family == "vlm":
             ve = self._input(vision_embeds, "vision_embeds").to(x.dtype)
             x = torch.cat([ve, x], dim=1)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         if cfg.family == "encdec":
-            x = encdec.decoder_forward(self.params, x, enc, cfg, positions,
-                                       cache)
+            x = encdec.decoder_forward(params, x, enc, cfg, positions, cache)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
-            x = transformer.decoder_forward(self.params["decoder"], x, cfg,
-                                            positions, cache)
+            x, aux = transformer.decoder_forward(params["decoder"], x, cfg,
+                                                 positions, cache)
         if cache is not None:
             cache["pos"].fill_(S)
             cache["filled"] = S
-        return rms_norm(x, self.params["ln_f"], cfg.norm_eps)
+        return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
-    def _logits(self, x):
-        p = self.params
+    def _logits(self, params, x):
         return logits_from_embed(
-            x, p["embed"] if self.cfg.tie_embeddings else p["w_out"])
+            x, params["embed"] if self.cfg.tie_embeddings else params["w_out"])
 
     def _prompt_cache(self, tokens, cache_len, vision_embeds, encoder_frames):
         """A cache for the whole prompt: a vlm's counts its patches as well
@@ -121,27 +128,50 @@ class LM:
                                      enc_len=encoder_frames.shape[1])
         return self.init_cache(B, slots)
 
-    def forward(self, tokens, *, want_cache: bool = False,
+    def forward(self, tokens, *, params=None, want_cache: bool = False,
                 cache_len: int | None = None, vision_embeds=None,
                 encoder_frames=None):
         """Teacher-forced forward over (B, S) tokens (a vlm's patch
         embeddings (B, P, d) in front of them; an encdec's frames (B, Senc,
-        d) through its encoder).  Returns (logits (B,S_total,V), cache or
-        None)."""
+        d) through its encoder) with ``params`` (``self.params`` by
+        default).  Returns (logits (B,S_total,V), cache or None)."""
+        params = self.params if params is None else params
         cache = (self._prompt_cache(tokens, cache_len, vision_embeds,
                                     encoder_frames) if want_cache else None)
-        x = self._hidden(tokens, cache, vision_embeds, encoder_frames)
-        return self._logits(x), cache
+        x, _ = self._hidden(params, tokens, cache, vision_embeds,
+                            encoder_frames)
+        return self._logits(params, x), cache
 
+    def loss(self, params, batch: dict):
+        """Next-token cross entropy (+ the moe aux loss), as the
+        reference's ``LM.loss``: ``batch["tokens"]`` (B, S+1) splits into
+        inputs and labels; a vlm's logits past its ``num_patches`` patch
+        positions are scored, an encdec's decoder runs over
+        ``batch["encoder_frames"]``.  Returns (ce + aux, {"ce": ce, "aux":
+        aux}), f32 0-d tensors, differentiable in ``params``."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        inp, labels = tokens[:, :-1], tokens[:, 1:]
+        x, aux = self._hidden(params, inp, None, batch.get("vision_embeds"),
+                              batch.get("encoder_frames"))
+        logits = self._logits(params, x)
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.num_patches:]
+        ce = softmax_xent(logits, labels, cfg.vocab_size)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    @torch.no_grad()
     def prefill(self, tokens, cache_len: int | None = None, *,
                 vision_embeds=None, encoder_frames=None):
         """Process a prompt; returns (last-position logits (B,V), cache).
         Only the last position goes through the logits product."""
         cache = self._prompt_cache(tokens, cache_len, vision_embeds,
                                    encoder_frames)
-        x = self._hidden(tokens, cache, vision_embeds, encoder_frames)
-        return self._logits(x[:, -1]), cache
+        x, _ = self._hidden(self.params, tokens, cache, vision_embeds,
+                            encoder_frames)
+        return self._logits(self.params, x[:, -1]), cache
 
+    @torch.no_grad()
     def decode_step(self, cache, token):
         """One new token (B,1); returns (logits (B,V), cache), the cache
         updated in place.  Raises ``IndexError`` when a full kv cache has
@@ -168,7 +198,7 @@ class LM:
         x = rms_norm(x, self.params["ln_f"], self.cfg.norm_eps)
         cache["pos"] = pos + 1
         cache["filled"] = filled + 1
-        return self._logits(x)[:, 0], cache
+        return self._logits(self.params, x)[:, 0], cache
 
     def init_cache(self, B: int, cache_len: int, dtype=None) -> dict:
         """Zeros cache; ``dtype`` defaults to the parameters' (a prefill

@@ -1,17 +1,20 @@
 """Decoder LM stack (port of ``repro/models/transformer.py``) for the
-``attn``, ``ssm`` and ``rec`` layer kinds: prefill with cache, one-token
-decode and ``init_cache``.  An attention layer's FFN is the SwiGLU MLP, or
-the routed experts for the ``moe`` family (:mod:`.moe`; its aux loss is
-dropped here, as serving has no loss).
+``attn``, ``ssm`` and ``rec`` layer kinds: the forward over full sequences
+(prefill with cache, or the training forward), one-token decode and
+``init_cache``.  An attention layer's FFN is the SwiGLU MLP, or the routed
+experts for the ``moe`` family (:mod:`.moe`), whose load-balance aux loss
+the forward sums over the layers and returns, as the reference's
+``decoder_forward`` does; decode drops it.
 
 Parameters and caches keep the reference's layouts: one kind of layer is a
 ``stack`` with a leading ``layers`` axis; the hybrid family (recurrentgemma)
 is ``groups`` of its block pattern, stacked on a leading ``groups`` axis,
 then an unstacked ``tail`` of the layers past the last whole group.  A
-Python loop over the layers takes the place of ``lax.scan``, indexing one
-layer's views.  The cache is written in place: prefill fills a zeroed
-cache layer by layer, decode writes each new entry and state into it (the
-reference builds new arrays).  The hybrid family's attention caches are
+Python loop over the layers takes the place of ``lax.scan``, over one
+layer's views of each stacked leaf (:func:`unstack`).  The cache is
+written in place: prefill fills a zeroed cache layer by layer, decode
+writes each new entry and state into it (the reference builds new
+arrays).  The hybrid family's attention caches are
 rings of ``min(local_window, cache_len)`` slots.
 """
 from __future__ import annotations
@@ -77,15 +80,28 @@ def layer_views(stack, i: int):
     return stack[i]
 
 
+def unstack(stack) -> list:
+    """Every layer of a stacked parameter tree, each the same nested dicts
+    of views, from one ``unbind`` a leaf: under autograd, a leaf's layer
+    gradients come back as one stack rather than one full-size scatter a
+    layer."""
+    if isinstance(stack, dict):
+        per = {k: unstack(v) for k, v in stack.items()}
+        n = len(next(iter(per.values())))
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(stack.unbind(0))
+
+
 def _o_proj(o, wo):
     return torch.einsum("bshk,hkd->bsd", o, wo)
 
 
 def _ffn(p, x, cfg):
-    """An attention layer's FFN: the routed experts (moe) or SwiGLU."""
+    """An attention layer's FFN: the routed experts (moe), with their aux
+    loss, or SwiGLU (aux None)."""
     if cfg.family == "moe":
-        return moe.moe_ffn(p, x, cfg)[0]
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        return moe.moe_ffn(p, x, cfg)
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), None
 
 
 # ======================================================================
@@ -99,8 +115,9 @@ def _window(cfg) -> int:
 
 
 def attn_block_fwd(lp, x, cfg, positions, entry):
-    """Prefill one attention block; writes k/v into the layer's cache views
-    ``entry`` (B,KV,Sc,hd) when given.
+    """One attention block over full sequences -> (x, the FFN's aux or
+    None); writes k/v into the layer's cache views ``entry`` (B,KV,Sc,hd)
+    when given.
 
     With a local window, the reference's dispatch: banded attention only
     when S > window and S % window == 0, full causal attention otherwise
@@ -115,7 +132,8 @@ def attn_block_fwd(lp, x, cfg, positions, entry):
     else:
         o = attn.prefill_attention(q, kh, vh)
     x = x + _o_proj(o, lp["attn"]["wo"])
-    x = x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    y, aux = _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    x = x + y
     if entry is not None:
         if window and S >= window:
             shift = (S - window) % window
@@ -124,7 +142,7 @@ def attn_block_fwd(lp, x, cfg, positions, entry):
         else:
             entry["k"][:, :, :S] = kh
             entry["v"][:, :, :S] = vh
-    return x
+    return x, aux
 
 
 def ssm_block_fwd(lp, x, cfg, entry):
@@ -150,10 +168,11 @@ def rec_block_fwd(lp, x, cfg, entry):
 
 
 def block_fwd(kind, lp, x, cfg, positions, entry):
+    """One block over full sequences -> (x, aux loss or None)."""
     if kind == "ssm":
-        return ssm_block_fwd(lp, x, cfg, entry)
+        return ssm_block_fwd(lp, x, cfg, entry), None
     if kind == "rec":
-        return rec_block_fwd(lp, x, cfg, entry)
+        return rec_block_fwd(lp, x, cfg, entry), None
     return attn_block_fwd(lp, x, cfg, positions, entry)
 
 
@@ -168,7 +187,7 @@ def attn_block_dec(lp, x, cfg, pos, entry):
         kc, vc = attn.cache_write_plain(entry["k"], entry["v"], k, v, pos)
         o = attn.decode_attention_plain(q, kc, vc, pos)
     x = x + _o_proj(o, lp["attn"]["wo"])
-    return x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
 
 
 def ssm_block_dec(lp, x, cfg, entry):
@@ -210,14 +229,15 @@ def _layers(params, cfg, cache):
     order: the layers of a ``stack``, or the groups' pattern then the tail."""
     if "stack" in params:
         kind = cfg.layer_kinds()[0]
-        for i in range(cfg.num_layers):
-            yield (kind, layer_views(params["stack"], i),
+        for i, lp in enumerate(unstack(params["stack"])):
+            yield (kind, lp,
                    None if cache is None else layer_views(cache["stack"], i))
         return
     group, G, tail = _groups(cfg)
+    groups = unstack(params["groups"])
     for g in range(G):
         for n, kind in group:
-            yield (kind, layer_views(params["groups"][n], g),
+            yield (kind, groups[g][n],
                    None if cache is None else
                    layer_views(cache["groups"][n], g))
     for n, kind in tail:
@@ -227,10 +247,16 @@ def _layers(params, cfg, cache):
 
 def decoder_forward(params, x, cfg, positions, cache=None):
     """Run every layer over full sequences; fills ``cache`` (from
-    :func:`init_cache`, at least S slots) when given.  Returns x."""
+    :func:`init_cache`, at least S slots) when given.  Returns (x, aux):
+    the moe layers' aux losses summed in layer order from an f32 zero (a
+    zero for the other families), as the reference's ``(x, aux_total,
+    cache)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp, entry in _layers(params, cfg, cache):
-        x = block_fwd(kind, lp, x, cfg, positions, entry)
-    return x
+        x, a = block_fwd(kind, lp, x, cfg, positions, entry)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def decoder_decode(params, x, cfg, pos, cache):

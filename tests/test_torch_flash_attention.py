@@ -1,4 +1,5 @@
-"""The port's flash attention against the JAX reference, on the CPU.
+"""The port's flash attention, forward and backward, against the JAX
+reference, on the CPU.
 
 The same numpy inputs go through the JAX Pallas kernel (interpret mode,
 64x64 blocks, as tests/test_kernels.py runs it), the JAX oracle and the
@@ -11,12 +12,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as ref_oracle  # noqa: E402
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel  # noqa: E402
+from repro.models.attention import full_causal_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    HEAD_DIMS, flash_attention_bwd_kernel, flash_attention_kernel,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_lse_ref, attention_ref,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -166,3 +174,108 @@ def test_tensor_core_rounding_on_the_smoke_edges(B, H, KV, S, hd, causal):
     want = ref_oracle(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
                       causal=causal)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+
+
+# -- the backward: the plain formulas the CUDA backward kernel implements ----
+
+# f32, relative to the largest gradient entry of the call (dq, dk, dv): at
+# S = 1 dq is exactly 0 in jax and a rounding residue of 1e-8 here
+BWD_TOL = 1e-5
+
+BWD_CASES = [(2, 8, 2, 40, 64, True),       # GQA 4:1
+             (1, 4, 1, 33, 32, True),       # MQA, ragged S
+             (1, 4, 4, 24, 16, False),      # unmasked
+             (2, 6, 3, 17, 128, False),     # GQA 2:1, unmasked, ragged
+             (1, 2, 2, 1, 64, True)]        # one row
+BWD_CASES += [(1, 4, 2, 20, hd, True) for hd in HEAD_DIMS]
+
+
+def _bwd_inputs(B, H, KV, S, hd, seed=6):
+    q, k, v = _inputs(B, H, KV, S, hd, seed=seed)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        (B, H, S, hd)).astype(np.float32)
+    return q, k, v, do
+
+
+def _close_scaled(got, want, atol, what=""):
+    np.testing.assert_allclose(_f32(got), np.asarray(want, np.float32),
+                               rtol=0, atol=atol, err_msg=what)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal", BWD_CASES)
+def test_attention_bwd_ref_matches_jax_vjp_of_the_reference(B, H, KV, S, hd,
+                                                            causal):
+    """dq/dk/dv of ``attention_bwd_ref`` (the kernel's formulas, from the
+    output and the row log-sum-exp) against ``jax.vjp`` of the reference's
+    oracle and, when causal, of ``full_causal_attention`` (the function the
+    reference's training differentiates); the port's autograd through its
+    plain forward too.  f32, within 1e-5 of the largest gradient entry."""
+    q, k, v, do = _bwd_inputs(B, H, KV, S, hd)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    fns = [lambda a, b, c: ref_oracle(a, b, c, causal=causal)]
+    if causal:
+        fns.append(lambda a, b, c: jnp.swapaxes(full_causal_attention(
+            *(jnp.swapaxes(t, 1, 2) for t in (a, b, c))), 1, 2))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    lse = attention_lse_ref(tq, tk, causal=causal)
+    o = flash_attention(tq, tk, tv, causal=causal)
+    got = attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal=causal)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    flash_attention(*leaves, causal=causal).backward(tdo)
+    for fn in fns:
+        out, vjp = jax.vjp(fn, jq, jk, jv)
+        np.testing.assert_allclose(_f32(o), np.asarray(out), atol=1e-5,
+                                   rtol=1e-5)
+        want = vjp(jdo)
+        atol = BWD_TOL * max(float(jnp.abs(w).max()) for w in want)
+        for name, g, a, w in zip("qkv", got, leaves, want):
+            _close_scaled(g, w, atol, f"d{name}")
+            _close_scaled(a.grad, w, atol, f"autograd d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_lse_is_the_natural_log_sum_exp_of_the_scaled_scores(causal):
+    """What the forward kernel writes for the backward: per row, the
+    natural-log log-sum-exp of the hd^-0.5-scaled, masked scores (the
+    reference's oracle's, computed in jax); padded rows carry none."""
+    B, H, KV, S, hd = 1, 4, 2, 37, 64
+    q, k, _ = _inputs(B, H, KV, S, hd)
+    s = jnp.einsum("bkgqh,bksh->bkgqs",
+                   jnp.asarray(q).reshape(B, KV, H // KV, S, hd),
+                   jnp.asarray(k)) * (hd ** -0.5)
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((S, S), bool)), s, -1e30)
+    want = jax.nn.logsumexp(s, axis=-1).reshape(B, H, S)
+    got = attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k),
+                            causal=causal)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_f32(got), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_the_masked_entries_get_no_gradient():
+    """Keys above the diagonal add nothing: perturbing the last key and
+    value moves every row's gradient except the last query's, never dq of
+    the rows that cannot see it."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(1, 2, 1, 9, 16))
+    lse = attention_lse_ref(q, k)
+    o = attention_ref(q, k, v)
+    dq, dk, dv = attention_bwd_ref(q, k, v, o, lse, do)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, -1] += 1.0
+    v2[:, :, -1] -= 1.0
+    o2 = attention_ref(q, k2, v2)
+    dq2, _, _ = attention_bwd_ref(q, k2, v2, o2, attention_lse_ref(q, k2), do)
+    assert torch.equal(dq[:, :, :-1], dq2[:, :, :-1])
+    assert not torch.equal(dq[:, :, -1], dq2[:, :, -1])
+
+
+def test_bwd_wrapper_refuses_what_its_kernel_does_not_take():
+    B, H, KV, S, hd = 1, 2, 2, 16, 16
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(B, H, KV, S, hd))
+    lse = torch.zeros((B, H, S))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_bwd_kernel(q, k, v, q, lse, do)
+    q24 = torch.zeros((B, H, S, 24))
+    with pytest.raises(ValueError, match="head dim 24"):
+        flash_attention_bwd_kernel(q24, q24, q24, q24, lse, q24)
