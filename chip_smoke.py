@@ -8,7 +8,9 @@ Phases, each printing one JSON line:
 
 1. card:    the card's name and power limit as nvidia-smi reports them;
 2. build:   ``nvcc`` builds every CUDA kernel from ``src/repro_torch/kernels/csrc``,
-            one process per source, all at once;
+            one process per source, all at once; a second line gives
+            ptxas's registers and spill bytes of the flash backward's
+            tensor-core kernels, each of which must spill nothing;
 3. kernels: the state-plane kernels against their plain PyTorch versions on
             the card, at the shapes the main path gives them plus ragged,
             u8/u32, f32/bf16 and NaN/inf cases; bit-identical results (scales
@@ -52,10 +54,14 @@ Phases, each printing one JSON line:
             the training shapes (minicpm-2b's q (2,36,1024,64) and
             demo-100m's (4,12,256,64) causal, yi-6b's GQA 32:4 at hd 128,
             hd 160 and 256, whisper-tiny's unmasked S 1500, S under one
-            tile, ragged S), f32 within 1e-4 and bf16 within 8e-3 (about
-            two bf16 ulps; the plain formulas in f32 from the same bf16
-            values); two calls give the same bits; timed beside the plain
-            formulas and the backward of scaled_dot_product_attention
+            tile, ragged S), and bf16 at the tensor-core route's tile edges
+            (hd 64 and 128, S 31-33, 63-65, 127-129, GQA 4:1 and 8:1, B 1
+            and 2), f32 within 1e-4 and bf16 within 8e-3 (about two bf16
+            ulps; the plain formulas in f32 from the same bf16 values); each
+            case records the route it took (tensor cores for bf16 at hd
+            16-128, CUDA cores otherwise); two calls give the same bits;
+            timed, with each kernel's device time, on both routes beside the
+            plain formulas and the backward of scaled_dot_product_attention
             (torch.autograd.grad), which the port never calls, and the
             training forward (with the log-sum-exp) beside SDPA's forward;
 5. session: the state-migration path through
@@ -140,7 +146,8 @@ Phases, each printing one JSON line:
 13. train:  the training path through ``repro_torch.launch.train.main``:
             full minicpm-2b (40 layers, d 2304, vocab 122,753), seeded bf16
             weights, batch 2 x seq 1024, 4 steps at lr 2e-5, each launching
-            flash_attention and flash_attention_bwd 40 times, finite and
+            flash_attention and flash_attention_bwd 40 times (the backward's
+            40 on its tensor-core route), finite and
             falling losses, seconds per step, tokens/s and peak device
             memory; full demo-100m checkpointed at step 2 (codec none) and
             resumed for steps 2-3 from the bits of the parameters and
@@ -167,6 +174,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -338,6 +346,7 @@ def phase_card() -> None:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import TC_BWD_HEAD_DIMS
     t0 = time.perf_counter()
     reports = _build.build_all()
     seconds = time.perf_counter() - t0
@@ -346,8 +355,39 @@ def phase_build() -> None:
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "entry function" in ln]
              for n, log in reports.items()}
+    if "flash_attention_bwd" in reports:
+        tc = {name: use for name, use in ptxas_usage(
+            reports["flash_attention_bwd"]).items() if "_tc<" in name}
+        spilled = {n: u for n, u in tc.items()
+                   if u.get("spill_stores", 1) or u.get("spill_loads", 1)}
+        emit({"phase": "build", "flash_attention_bwd_tensor_cores": tc})
+        if len(tc) != 2 * len(TC_BWD_HEAD_DIMS) or spilled:
+            raise AssertionError(f"flash_attention_bwd tensor-core kernels: "
+                                 f"{len(tc)} instances, spilled {spilled}")
     emit({"phase": "build", "seconds": seconds, "built": sorted(reports),
           "ptxas": ptxas})
+
+
+def ptxas_usage(log: str) -> dict:
+    """``{kernel<hd>: {"registers", "spill_stores", "spill_loads"}}`` of the
+    templated entry functions in an ``nvcc -Xptxas -v`` log (names
+    demangled as far as ``name<hd>``)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", ln)
+        if m:
+            k = re.search(r"([a-z]+(?:_[a-z]+)*)ILi(\d+)E", m.group(1))
+            cur = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if cur and m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if cur and m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
 
 
 def phase_kernels() -> list[dict]:
@@ -949,6 +989,7 @@ def phase_lm_kernels() -> list[dict]:
     return rows
 
 
+TC_EDGES = (31, 32, 33, 63, 64, 65, 127, 128, 129)
 # the backward kernel's (atol, rtol): f32 against the plain formulas in f32;
 # bf16 about two bf16 ulps (2**-7 relative) around the outputs' rounding,
 # the plain formulas computing in f32 from the same bf16 values, output and
@@ -1021,12 +1062,20 @@ def phase_flash_bwd() -> list[dict]:
              ((1, 4, 2, 1025, 64), bf16, True), ((1, 4, 2, 1025, 64), f32, True),
              ((2, 4, 2, 77, 32), f32, False), ((1, 2, 2, 130, 16), bf16, True),
              ((2, 8, 2, 40, 64), f32, True), ((1, 4, 4, 24, 16), f32, False)]
+    # the tensor-core route's tile edges (64-row key tiles; query tiles of 64
+    # rows, 32 at hd 128, in the dK/dV walk; key tiles of 64, 32 at hd 128,
+    # in the dQ walk): one, two and three tiles, each ragged by one either
+    # way; GQA 4:1 and 8:1; B 1 and 2; causal, and unmasked at 33 and 129
+    cases += [((1 + S % 2, 8, 1 if S in (33, 64, 127) else 2, S, hd), bf16,
+               S not in (33, 129))
+              for hd in (64, 128) for S in TC_EDGES]
     errs = {"float32": 0.0, "bfloat16": 0.0}
     lse_errs = {"float32": 0.0, "bfloat16": 0.0}
     o_errs = {"float32": 0.0, "bfloat16": 0.0}
     checked = []
     for (B, H, KV, S, hd), dtype, causal in cases:
         name = str(dtype).removeprefix("torch.")
+        routes = dict(fk.BWD_ROUTE_LAUNCHES)
         q = randn((B, H, S, hd), dtype)
         k, v = randn((B, KV, S, hd), dtype), randn((B, KV, S, hd), dtype)
         do = randn((B, H, S, hd), dtype)
@@ -1046,6 +1095,11 @@ def phase_flash_bwd() -> list[dict]:
                              float((lse - want_lse).abs().max()))
         got = fk.flash_attention_bwd_kernel(q, k, v, o, lse, do,
                                             causal=causal)
+        route = [r for r, n in fk.BWD_ROUTE_LAUNCHES.items()
+                 if n != routes[r]]
+        if route != [fk.bwd_route(dtype, hd)]:
+            raise AssertionError(f"flash_attention_bwd {B, H, KV, S, hd} "
+                                 f"{name}: routes {route}")
         want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
         atol, rtol = BWD_TOL[name]
         err = 0.0
@@ -1060,7 +1114,7 @@ def phase_flash_bwd() -> list[dict]:
                                  f"two calls differ")
         errs[name] = max(errs[name], err)
         checked.append([B, H, KV, S, hd, name, "causal" if causal else "full",
-                        err])
+                        route[0], err])
 
     # timed at minicpm-2b's training shape, bf16 (the train phase's route)
     B, H, KV, S, hd = main_bwd
@@ -1100,6 +1154,7 @@ def phase_flash_bwd() -> list[dict]:
     per_kernel = device_kernels_ms(lambda: kern(q, k, v, o, lse, do))
     f32_in = [t.float() for t in (q, k, v, o)] + [lse, do.float()]
     ms_f32 = time_ms(lambda: kern(*f32_in), max(2, REPS // 4))
+    per_kernel_f32 = device_kernels_ms(lambda: kern(*f32_in), 4)
     del f32_in
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
                        max(2, REPS // 10))
@@ -1119,7 +1174,8 @@ def phase_flash_bwd() -> list[dict]:
     nbytes = 2 * (4 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
     b, by = bound(nbytes, flops, BF16_OPS_PER_S)
     torch.cuda.synchronize()
-    emit({"phase": "lm_kernels_bwd", "checked": checked,
+    emit({"phase": "lm_kernels_bwd", "card": card_line(),
+          "routes": dict(fk.BWD_ROUTE_LAUNCHES), "checked": checked,
           "tolerances": {"flash_attention_bwd": BWD_TOL, "lse": LSE_TOL,
                          "o": {n: TOL[("flash_attention", n)]
                                for n in ("float32", "bfloat16")}},
@@ -1137,6 +1193,13 @@ def phase_flash_bwd() -> list[dict]:
              "max_abs_err_bf16": errs["bfloat16"],
              "lse_max_abs_err": lse_errs, "o_max_abs_err": o_errs,
              "ms": ms, "ms_f32": ms_f32, "device_kernels_ms": per_kernel,
+             "device_kernels_ms_f32": per_kernel_f32,
+             # the CUDA-core route (f32 here; bf16 took it too before the
+             # tensor-core route) -> the tensor-core route, this run's
+             "cuda_cores_to_tensor_cores": {
+                 "ms": f"{ms_f32} -> {ms}",
+                 "device_ms": f"{sum(per_kernel_f32.values())} -> "
+                              f"{sum(per_kernel.values())}"},
              "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
              "library_ms": library_ms, "library_call": library_call,
              "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
@@ -2512,11 +2575,16 @@ def phase_train(tmp: Path) -> dict:
        tied embeddings, the WSD schedule), seeded bf16 weights, batch 2 x
        seq 1024, 4 steps at lr 2e-5: every step launches flash_attention 40
        times (forward with the row log-sum-exp) and flash_attention_bwd 40
-       times;
+       times, all 40 on its tensor-core route;
        every loss and grad norm finite, the last loss below the first;
        prints seconds per step (and its split: the forward and the AdamW
        update each timed between two synchronises, the backward the rest),
-       tokens per second and the peak device memory;
+       tokens per second and the peak device memory; then, from the last
+       step's output, two more steps (a warm-up and one under
+       torch.profiler) give the device time of a step by kernel, the flash
+       kernels' share and the device's idle share of a steady step (empty
+       if the profiler records no device time, as some whole runs did
+       after the gateway phase: then call the phase alone);
     2. full demo-100m, 4 steps with a checkpoint every 2 (codec ``none``);
        the checkpoint of step 2 (the later manifest removed, as if the run
        had stopped there) resumes for steps 2 and 3: the parameters and
@@ -2549,15 +2617,20 @@ def phase_train(tmp: Path) -> dict:
     for m in lm_kernels():
         m.reset_launches()
 
-    # per-step launches, and the host time of each step's forward (the
-    # loss) and AdamW update, each between two synchronises: the smoke wraps
-    # the CLI's step function, LM.loss and adamw_update
-    per_step, split = [], []
+    # per-step launches (and the backward's by route), and the host time of
+    # each step's forward (the loss) and AdamW update, each between two
+    # synchronises: the smoke wraps the CLI's step function, LM.loss and
+    # adamw_update
+    fk = lm_kernels()[0]
+    per_step, per_step_routes, split = [], [], []
     step_fn, loss_fn, update_fn = tr.train_step, LM.loss, tr.adamw_update
     # the (params, opt) trees handed to the steps whose index (counted from
     # the last ``per_step.clear()``) is a key, copied before the step
     # updates them in place
     states: dict[int, list] = {}
+    # the step count whose (lm, tc, params, opt, batch) are kept to trace
+    # steps after the run
+    trace_after, last = [None], []
 
     def counted(lm, tc, params, opt, batch):
         if len(per_step) in states:
@@ -2565,9 +2638,13 @@ def phase_train(tmp: Path) -> dict:
                 (p, x.detach().clone()) for p, x in
                 tree_flatten_with_path({"params": params,
                                         "opt": opt._asdict()})]
-        before = lm_launches()
+        before, routes = lm_launches(), dict(fk.BWD_ROUTE_LAUNCHES)
         out = step_fn(lm, tc, params, opt, batch)
         per_step.append({k: n - before[k] for k, n in lm_launches().items()})
+        per_step_routes.append({k: n - routes[k]
+                                for k, n in fk.BWD_ROUTE_LAUNCHES.items()})
+        if len(per_step) == trace_after[0]:
+            last[:] = [lm, tc, out[0], out[1], batch]
         return out
 
     def timed(fn, what):
@@ -2600,16 +2677,26 @@ def phase_train(tmp: Path) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    trace_after[0] = TRAIN_STEPS
     hist, text = cli(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
                       "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
                       "--lr", TRAIN_LR])
+    trace_after[0] = None
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    traced = device_kernels_ms(lambda: step_fn(*last), reps=1)
+    last.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     want = {"flash_attention": n_layers, "flash_attention_bwd": n_layers,
             "ssd_scan": 0, "rglru_scan": 0}
     if len(hist) != TRAIN_STEPS or per_step != [want] * TRAIN_STEPS:
         raise AssertionError(f"{TRAIN_ARCH}: launches per step {per_step}, "
                              f"expected {want} x {TRAIN_STEPS}")
+    want_routes = {"tensor_cores": n_layers, "cuda_cores": 0}
+    if per_step_routes != [want_routes] * TRAIN_STEPS:
+        raise AssertionError(f"{TRAIN_ARCH}: backward routes per step "
+                             f"{per_step_routes}, expected {want_routes}")
     losses = [h["loss"] for h in hist]
     if not all(finite(h["loss"]) and finite(h["grad_norm"]) for h in hist) \
             or not losses[-1] < losses[0]:
@@ -2623,6 +2710,16 @@ def phase_train(tmp: Path) -> dict:
     steps_split = [{"forward": f, "optimizer": o,
                     "backward_and_rest": t - f - o}
                    for f, o, t in zip(fwd, opt, secs)]
+    busy = sum(traced.values())
+    step_device = {
+        "ms": busy,
+        "idle_share_of_steady_step": 1 - busy / 1e3 / steady if busy else None,
+        "flash_attention_bwd_ms": sum(t for k, t in traced.items()
+                                      if k.startswith("attn_bwd_")),
+        "flash_attention_ms": sum(t for k, t in traced.items()
+                                  if k.startswith("flash_fwd_")),
+        "top_kernels_ms": dict(sorted(traced.items(),
+                                      key=lambda kv: -kv[1])[:12])}
     emit({"phase": "train", "arch": TRAIN_ARCH, "card": card_line(),
           "params": param_count(LM(cfg, max_seq=TRAIN_SEQ,
                                    device="cpu").spec),
@@ -2634,13 +2731,16 @@ def phase_train(tmp: Path) -> dict:
           "steady_seconds_per_step": steady,
           "tokens_per_s": [tokens / t for t in secs],
           "steady_tokens_per_s": tokens / steady,
-          "split_seconds": steps_split, "lr": float(TRAIN_LR),
+          "split_seconds": steps_split, "traced_step_device": step_device,
+          "lr": float(TRAIN_LR),
           "peak_memory_bytes": peak, "wall_seconds_with_init": wall,
-          "launches_per_step": want, "cli": text.splitlines()})
+          "launches_per_step": want, "bwd_routes_per_step": want_routes,
+          "cli": text.splitlines()})
 
     # 2. the checkpoint leg, full demo-100m
     t_leg = time.perf_counter()
     per_step.clear()
+    per_step_routes.clear()
     split.clear()
     states.update({2: [], 4: []})   # the unbroken run's step 2, the resumed
     hash_before = state_kernel_counts()
@@ -2717,7 +2817,8 @@ def phase_train_agree() -> None:
     on the CPU (the plain versions, which the CPU tests hold to the JAX
     reference): the loss within 1e-5, every gradient leaf within 1e-4 of
     its max-abs, exactly one forward and one backward flash launch per
-    attention layer on the card and none on the CPU; then two
+    attention layer on the card (the backward's on its CUDA-core route,
+    f32) and none on the CPU; then two
     ``adamw_update`` steps on each side fed the CPU's gradients: every
     master weight within 1e-6 of its leaf's max-abs."""
     import torch
@@ -2730,6 +2831,7 @@ def phase_train_agree() -> None:
     from repro_torch.models import LM
     from repro_torch.optim import adamw_update, init_opt_state
 
+    fk = lm_kernels()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
@@ -2746,12 +2848,15 @@ def phase_train_agree() -> None:
             lm = LM(cfg, max_seq=S, device=dev)
             p = lm.load_reference(params)
             tree_map_with_path(lambda _, t: t.requires_grad_(True), p)
-            before = lm_launches()
+            before, routes = lm_launches(), dict(fk.BWD_ROUTE_LAUNCHES)
             value, _ = lm.loss(p, batch)
             value.backward()
             got = {k: n - before[k] for k, n in lm_launches().items()}
+            got.update({k: n - routes[k]
+                        for k, n in fk.BWD_ROUTE_LAUNCHES.items()})
             want = ({"flash_attention": fwd, "flash_attention_bwd": fwd,
-                     "ssd_scan": 0, "rglru_scan": 0} if dev == "cuda"
+                     "ssd_scan": 0, "rglru_scan": 0, "cuda_cores": fwd,
+                     "tensor_cores": 0} if dev == "cuda"
                     else {k: 0 for k in got})
             if got != want:
                 raise AssertionError(f"{arch} on {dev}: launches {got}, "

@@ -14,29 +14,64 @@
 // diagonal, or past S in a ragged last tile) get P = 0 exactly, so they add nothing.
 //
 // What bounds it: operations.  The backward does 2.5x the forward's FLOPs (halved when causal),
-// hundreds of operations per byte at training lengths; this first design runs them on the CUDA
-// cores in f32 (67 T/s), so it is several times slower than a tensor-core backward would be.
-// Speed is later work (wgmma/TMA, ROADMAP queue B); this design is simple and deterministic:
+// hundreds of operations per byte at training lengths, so the bf16 tensor cores (989 TFLOP/s)
+// set the bound.  Three launches, each deterministic (no atomics: every output element is
+// written once by one thread, so two calls give the same bits):
 //
 // 1. `attn_bwd_dot`: D = rowsum(dO o O) in f32, one warp a row.
-// 2. `attn_bwd_dkdv`: one 256-thread block per (key tile, kv head, batch).  K and V of the tile
-//    stay in shared memory; the block walks the group's query heads and, for each, the query
-//    tiles that can see the tile (from the diagonal on, when causal), recomputing S and dP for
-//    the (key, query) tile pair, P and dS from them, and accumulating dK and dV in f32
-//    registers.  Every dK/dV element is written by one thread once: no atomics, so GQA needs
-//    no reduction pass and two calls give the same bits.
-// 3. `attn_bwd_dq`: one block per (query tile, head, batch), walking the key tiles up to the
-//    diagonal and accumulating dQ in f32 registers.
+// 2. dK/dV: one block per (key tile, kv head, batch).  K and V of the tile stay in shared memory;
+//    the block walks the group's query heads and, for each, the query tiles that can see the
+//    tile (from the diagonal on, when causal), recomputing S^T and dP^T for the (key, query) tile
+//    pair, P^T and dS^T from them, and accumulating dK and dV in f32 registers.
+// 3. dQ: one block per (query tile, head, batch), walking the key tiles up to the diagonal and
+//    accumulating dQ in f32 registers.
+// The dK/dV walk re-forms S and dP that the dQ walk forms too: seven tile products where a fused
+// backward (dQ summed by atomics) does five; that is the price of the same bits on every call.
 //
-// Tiles are 64 keys x 64 queries (32 x 32 at hd 256, to stay within 227 KB of shared memory),
-// f32 in shared memory with rows padded by one float; each thread holds a 4x4 (2x2) micro-tile
-// of the scores and 4 (2) rows x hd/16 columns of its accumulators.  Inputs may be f32 or bf16
-// (widened to f32 on load); outputs are written in the input dtype.  P is recomputed with
-// expf, never --use_fast_math.  The kernels allocate nothing and never synchronise; they run
-// on the caller's stream.
+// Two routes, chosen by dtype and head dim in `flash_attention_bwd_bf16` (kernel.py's
+// TC_BWD_HEAD_DIMS and bwd_route mirror the choice):
+//
+// bf16 at hd 16, 32, 64 and 128 (the training path): tensor cores, `attn_bwd_dkdv_tc` and
+// `attn_bwd_dq_tc`.  128-thread blocks of 4 warps, each warp 16 rows (keys in dK/dV, queries in
+// dQ); every product is mma.sync m16n8k16 on bf16 fragments with f32 accumulation, through
+// tc_sm90.cuh.  Tiles stay bf16 in shared memory with rows padded by 16 bytes (conflict-free
+// ldmatrix), and the walked tiles (Q, dO and their LSE, D rows in dK/dV; K, V in dQ) arrive by
+// cp.async in a two-stage ring: tile i+1 is in flight while tile i is used.  dK/dV forms
+// S^T = K Q^T and dP^T = V dO^T (Q and dO the B operands, stored [query][d], read by ldmatrix),
+// then P^T and dS^T in registers (LSE and D are per query, so they index the C fragment's
+// column), and feeds them straight from the score registers as A fragments into dV += P^T dO and
+// dK += dS^T Q (dO and Q read by ldmatrix.trans), with the forward's pairing of C tiles into A
+// (flash_attention.cu, P.V); P and dS never touch shared memory.  dQ holds Q and dO as A
+// fragments in registers, forms S = Q K^T and dP = dO V^T, dS in registers, and dQ += dS K (K by
+// ldmatrix.trans).  P and dS are split into bf16 hi + lo (tc::split_bf16) and each half
+// multiplies the exact bf16 operand: one bf16 rounding of P and dS alone lands up to 2x outside
+// the bf16 tolerance against the plain formulas in f32 (GQA sums many heads' roundings into one
+// dK/dV row; tests/test_torch_flash_attention.py emulates both), hi + lo keeps them to about
+// 2^-16, at three more products a tile pair (ten in all).  P is 2^(S scale log2 e - LSE log2 e)
+// by ex2.approx; masked entries are set to exactly 0.  Key tiles are 64 rows; query tiles in
+// the dK/dV walk are 64 rows (32 at hd 128) and key tiles in the dQ walk 64 (32 at hd 128), so
+// that the f32 accumulators (16 rows x hd, two of them in dK/dV) and the score tiles fit the
+// registers without spilling; at hd <= 64 the warp's K and V rows stay in registers as A
+// fragments for the whole walk.  The grids run the heaviest tiles first: key tiles nearest 0
+// for dK/dV, query tiles nearest S for dQ, as the forward orders its grid.
+//
+// f32 (the route that matches the reference closely: `train_agree`, the f32 checks) and bf16 at
+// hd 160 and 256: CUDA cores, `attn_bwd_dkdv` and `attn_bwd_dq`, 256-thread blocks.  At hd 160
+// and 256 the tensor-core dK/dV accumulators (16 rows x hd x 2 in f32, 160-256 registers a
+// thread) do not fit a warp's registers; those head dims serve (stablelm-12b, recurrentgemma)
+// but no config trains them on the card, so they keep this first design.  Tiles are 64 keys x
+// 64 queries (32 x 32 at hd 256, to stay within 227 KB of shared memory), f32 in shared memory
+// with rows padded by one float; each thread holds a 4x4 (2x2) micro-tile of the scores and 4
+// (2) rows x hd/16 columns of its accumulators.  bf16 inputs are widened to f32 on load; P is
+// recomputed with expf, never --use_fast_math.
+//
+// Outputs are written in the input dtype.  The kernels allocate nothing and never synchronise;
+// they run on the caller's stream.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_sm90.cuh"
 
 namespace {
 
@@ -342,6 +377,400 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
+// ------------------------------------------------------------------------------------------
+// bf16 route at hd 16-128: tensor cores (mma.sync m16n8k16, f32 accumulation)
+// ------------------------------------------------------------------------------------------
+
+using tc::bf16;
+
+constexpr int kTcThreads = 128;            // 4 warps of 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct TcCfg {
+  static constexpr int LD = HD + 8;        // bf16 row stride in shared memory (+16 bytes)
+  static constexpr int KS = HD / 16;       // k16 steps over the head dim
+  static constexpr int DT = HD / 8;        // n8 tiles of an accumulator row block
+  // dK/dV: 64 keys a block; the walked query tiles, BQ rows, in two stages
+  static constexpr int BKEY = 64;
+  static constexpr int BQ = HD == 128 ? 32 : 64;
+  static constexpr bool KVREG = HD <= 64;  // the warp's K and V rows held as A fragments
+  // K, V; two stages of (Q, dO); two stages of the (LSE, D) rows
+  static constexpr size_t SMEM_DKDV =
+      sizeof(bf16) * (2 * BKEY * LD + 4 * BQ * LD) + sizeof(float) * 4 * BQ;
+  // dQ: 64 queries a block (Q and dO then held as A fragments); the walked key tiles, BK rows
+  static constexpr int BQQ = 64;
+  static constexpr int BK = HD == 128 ? 32 : 64;
+  static constexpr size_t SMEM_DQ = sizeof(bf16) * (2 * BQQ * LD + 4 * BK * LD);
+};
+
+// the A fragments (hi and lo halves) of one k16 step from two C tiles of f32 values, as the
+// forward pairs P's C tiles into A: c[half][0..1] row g, c[half][2..3] row g + 8
+__device__ __forceinline__ void split_a(const float (&c)[2][4], uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    tc::split_bf16(c[half][0], c[half][1], hi[2 * half], lo[2 * half]);
+    tc::split_bf16(c[half][2], c[half][3], hi[2 * half + 1], lo[2 * half + 1]);
+  }
+}
+
+// acc[2 dp], acc[2 dp + 1] += (hi + lo) * the [k][n] tile at `b` (16 rows of k, 16 of n)
+__device__ __forceinline__ void mma_split(float (&acc0)[4], float (&acc1)[4],
+                                          const uint32_t (&hi)[4], const uint32_t (&lo)[4],
+                                          const bf16* b) {
+  uint32_t bb[4];
+  tc::ldsm_x4_t(bb, b);
+  tc::mma_bf16(acc0, hi, bb[0], bb[1]);
+  tc::mma_bf16(acc0, lo, bb[0], bb[1]);
+  tc::mma_bf16(acc1, hi, bb[2], bb[3]);
+  tc::mma_bf16(acc1, lo, bb[2], bb[3]);
+}
+
+// dK, dV for one (64-key tile, kv head, batch)
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+attn_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ dvec,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H, int KV, int S,
+                 int causal, float scale, float scale_log2) {
+  using C = TcCfg<HD>;
+  constexpr int LD = C::LD, KS = C::KS, DT = C::DT, BKEY = C::BKEY, BQ = C::BQ;
+  constexpr int NT = BQ / 8;               // n8 tiles of a score row block (queries)
+  constexpr int QT = BQ * LD;              // elements of one Q or dO tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const Vs = Ks + BKEY * LD;
+  bf16* const stages = Vs + BKEY * LD;     // [stage][Q, dO]
+  float* const rows = reinterpret_cast<float*>(stages + 4 * QT);   // [stage][LSE, D]
+
+  // heaviest key tiles first (under the causal mask every query tile sees key tile 0); the kv
+  // heads of one (key tile, batch) adjacent
+  const int kvh = blockIdx.x % KV;
+  const int rest = blockIdx.x / KV;
+  const int b = rest % B;
+  const int k0 = (rest / B) * BKEY;
+  const int G = H / KV;
+  const long long head = static_cast<long long>(S) * HD;
+  const long long kvoff = (static_cast<long long>(b) * KV + kvh) * head;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + warp * 16;          // the warp's first key
+
+  // the walk: the group's query heads, and for each the query tiles that see this key tile
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int per_head = n_qt - qt0;         // >= 1: k0 < S
+  const int n_it = G * per_head;
+
+  // Q, dO, LSE and D of walk step `it` into stage it & 1 (rows past S zero-filled)
+  auto issue = [&](int it) {
+    const long long bh = static_cast<long long>(b) * H + kvh * G + it / per_head;
+    const int q0 = (qt0 + it % per_head) * BQ;
+    bf16* const dst = stages + (it & 1) * 2 * QT;
+    tc::load_rows_async(dst, LD, q + bh * head, q0, BQ, S, HD);
+    tc::load_rows_async(dst + QT, LD, dout + bh * head, q0, BQ, S, HD);
+    float* const r = rows + (it & 1) * 2 * BQ;
+    for (int i = threadIdx.x; i < 2 * BQ; i += kTcThreads) {
+      const int qi = q0 + (i < BQ ? i : i - BQ);
+      const bool ok = qi < S;
+      tc::cp_async4(r + i, (i < BQ ? lse : dvec) + bh * S + (ok ? qi : 0), ok);
+    }
+  };
+
+  tc::load_rows_async(Ks, LD, k + kvoff, k0, BKEY, S, HD);
+  tc::load_rows_async(Vs, LD, v + kvoff, k0, BKEY, S, HD);
+  tc::cp_async_commit();
+  issue(0);
+  tc::cp_async_commit();
+
+  const int a_off = (warp * 16 + tc::frag_a_row(lane)) * LD + tc::frag_a_col(lane);
+  const int bt_off = tc::frag_bt_row(lane) * LD + tc::frag_bt_col(lane);
+  const int tr_off = tc::frag_a_row(lane) * LD + tc::frag_a_col(lane);
+
+  uint32_t kf[C::KVREG ? KS : 1][4], vf[C::KVREG ? KS : 1][4];
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) issue(it + 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();                // K, V and walk step it have landed
+    __syncthreads();
+    if constexpr (C::KVREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          tc::ldsm_x4(kf[kk], Ks + a_off + kk * 16);
+          tc::ldsm_x4(vf[kk], Vs + a_off + kk * 16);
+        }
+      }
+    }
+    const bf16* const Qs = stages + (it & 1) * 2 * QT;
+    const bf16* const dOs = Qs + QT;
+    const float* const Ls = rows + (it & 1) * 2 * BQ;
+    const float* const Ds = Ls + BQ;
+    const int q0 = (qt0 + it % per_head) * BQ;
+
+    if (!causal || q0 + BQ - 1 >= kw0) {   // else every query of the tile precedes these keys
+      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x BQ queries
+      float s[NT][4], dpt[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ak[4], av[4];
+        if constexpr (C::KVREG) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            ak[r] = kf[kk][r];
+            av[r] = vf[kk][r];
+          }
+        } else {
+          tc::ldsm_x4(ak, Ks + a_off + kk * 16);
+          tc::ldsm_x4(av, Vs + a_off + kk * 16);
+        }
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, Qs + bt_off + np * 16 * LD + kk * 16);
+          tc::mma_bf16(s[2 * np], ak, bb[0], bb[1]);
+          tc::mma_bf16(s[2 * np + 1], ak, bb[2], bb[3]);
+          tc::ldsm_x4(bb, dOs + bt_off + np * 16 * LD + kk * 16);
+          tc::mma_bf16(dpt[2 * np], av, bb[0], bb[1]);
+          tc::mma_bf16(dpt[2 * np + 1], av, bb[2], bb[3]);
+        }
+      }
+
+      // P^T and dS^T in registers: keys are the fragment's rows (g, g + 8), queries its
+      // columns (2t, 2t + 1 of each n8 tile), so LSE and D are read by column
+      const bool need_mask = q0 + BQ > S || kw0 + 16 > S || (causal && q0 < kw0 + 15);
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {   // k16 steps over the tile's queries
+        float p[2][4], ds[2][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = 2 * kk + half;
+          const int c = j * 8 + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(Ls + c);
+          const float2 d2 = *reinterpret_cast<const float2*>(Ds + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lv = (e & 1) ? l2.y : l2.x;
+            float pe = tc::ex2(fmaf(s[j][e], scale_log2, -lv * kLog2e));
+            if (need_mask) {
+              const int qi = q0 + c + (e & 1), kj = kw0 + g + (e >> 1) * 8;
+              if (qi >= S || kj >= S || (causal && kj > qi)) pe = 0.f;
+            }
+            p[half][e] = pe;
+            ds[half][e] = pe * (dpt[j][e] - ((e & 1) ? d2.y : d2.x));
+          }
+        }
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        split_a(p, ph, pl);
+        split_a(ds, dh, dl);
+        // dV += P^T dO, dK += dS^T Q (dO and Q stored [query][d]: B by ldmatrix.trans)
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          const int off = tr_off + kk * 16 * LD + dp * 16;
+          mma_split(dv_acc[2 * dp], dv_acc[2 * dp + 1], ph, pl, dOs + off);
+          mma_split(dk_acc[2 * dp], dk_acc[2 * dp + 1], dh, dl, Qs + off);
+        }
+      }
+    }
+    __syncthreads();                       // every warp is done with this stage
+  }
+
+  const int r0 = kw0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    const long long col = kvoff + d * 8 + 2 * t;
+    if (r0 < S) {
+      *reinterpret_cast<uint32_t*>(dk + col + static_cast<long long>(r0) * HD) =
+          tc::pack_bf16(dk_acc[d][0] * scale, dk_acc[d][1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + col + static_cast<long long>(r0) * HD) =
+          tc::pack_bf16(dv_acc[d][0], dv_acc[d][1]);
+    }
+    if (r1 < S) {
+      *reinterpret_cast<uint32_t*>(dk + col + static_cast<long long>(r1) * HD) =
+          tc::pack_bf16(dk_acc[d][2] * scale, dk_acc[d][3] * scale);
+      *reinterpret_cast<uint32_t*>(dv + col + static_cast<long long>(r1) * HD) =
+          tc::pack_bf16(dv_acc[d][2], dv_acc[d][3]);
+    }
+  }
+}
+
+// dQ for one (64-query tile, head, batch)
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ dvec,
+               bf16* __restrict__ dq, int B, int H, int KV, int S, int n_qt, int causal,
+               float scale, float scale_log2) {
+  using C = TcCfg<HD>;
+  constexpr int LD = C::LD, KS = C::KS, DT = C::DT, BQQ = C::BQQ, BK = C::BK;
+  constexpr int NT = BK / 8;               // n8 tiles of a score row block (keys)
+  constexpr int KT = BK * LD;              // elements of one K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const dOs = Qs + BQQ * LD;
+  bf16* const stages = dOs + BQQ * LD;     // [stage][K, V]
+
+  // heaviest query tiles first; inside a query tile, batch, then the heads of one kv head
+  const int h = blockIdx.x % H;
+  const int rest = blockIdx.x / H;
+  const int b = rest % B;
+  const int q0 = (n_qt - 1 - rest / B) * BQQ;
+  const int kvh = h / (H / KV);
+  const long long head = static_cast<long long>(S) * HD;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const bf16* const kb = k + (static_cast<long long>(b) * KV + kvh) * head;
+  const bf16* const vb = v + (static_cast<long long>(b) * KV + kvh) * head;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + warp * 16;         // the warp's first query
+  const int row0 = wrow + g, row1 = row0 + 8;
+
+  const int q_last = min(q0 + BQQ, S) - 1;
+  const int kv_end = causal ? q_last + 1 : S;
+  const int n_kt = (kv_end + BK - 1) / BK;
+
+  tc::load_rows_async(Qs, LD, q + bh * head, q0, BQQ, S, HD);
+  tc::load_rows_async(dOs, LD, dout + bh * head, q0, BQQ, S, HD);
+  tc::cp_async_commit();
+  tc::load_rows_async(stages, LD, kb, 0, BK, S, HD);
+  tc::load_rows_async(stages + KT, LD, vb, 0, BK, S, HD);
+  tc::cp_async_commit();
+
+  // the rows' LSE (in base 2) and D; rows past S are never written
+  const float* const lrow = lse + bh * S;
+  const float* const drow = dvec + bh * S;
+  const float l0 = row0 < S ? lrow[row0] * kLog2e : 0.f;
+  const float l1 = row1 < S ? lrow[row1] * kLog2e : 0.f;
+  const float d0 = row0 < S ? drow[row0] : 0.f;
+  const float d1 = row1 < S ? drow[row1] : 0.f;
+
+  const int a_off = (warp * 16 + tc::frag_a_row(lane)) * LD + tc::frag_a_col(lane);
+  const int bt_off = tc::frag_bt_row(lane) * LD + tc::frag_bt_col(lane);
+  const int tr_off = tc::frag_a_row(lane) * LD + tc::frag_a_col(lane);
+
+  uint32_t qf[KS][4], of[KS][4];
+  tc::cp_async_wait<1>();                  // Q and dO have landed
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    tc::ldsm_x4(qf[kk], Qs + a_off + kk * 16);
+    tc::ldsm_x4(of[kk], dOs + a_off + kk * 16);
+  }
+
+  float dq_acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) dq_acc[d][0] = dq_acc[d][1] = dq_acc[d][2] = dq_acc[d][3] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) {
+      bf16* const nx = stages + ((kt + 1) & 1) * 2 * KT;
+      tc::load_rows_async(nx, LD, kb, (kt + 1) * BK, BK, S, HD);
+      tc::load_rows_async(nx + KT, LD, vb, (kt + 1) * BK, BK, S, HD);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();                // key tile kt has landed
+    __syncthreads();
+    const bf16* const Ks = stages + (kt & 1) * 2 * KT;
+    const bf16* const Vs = Ks + KT;
+    const int k0 = kt * BK;
+
+    if (!causal || k0 <= wrow + 15) {      // else every key lies above this warp's rows
+      // S = Q K^T and dP = dO V^T (K and V stored [key][d]: B by ldmatrix)
+      float s[NT][4], dpm[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dpm[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, Ks + bt_off + np * 16 * LD + kk * 16);
+          tc::mma_bf16(s[2 * np], qf[kk], bb[0], bb[1]);
+          tc::mma_bf16(s[2 * np + 1], qf[kk], bb[2], bb[3]);
+          tc::ldsm_x4(bb, Vs + bt_off + np * 16 * LD + kk * 16);
+          tc::mma_bf16(dpm[2 * np], of[kk], bb[0], bb[1]);
+          tc::mma_bf16(dpm[2 * np + 1], of[kk], bb[2], bb[3]);
+        }
+      }
+
+      // dS in registers, then dQ += dS K (K stored [key][d]: B by ldmatrix.trans)
+      const bool need_mask = k0 + BK > S || (causal && k0 + BK - 1 > wrow);
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {   // k16 steps over the tile's keys
+        float ds[2][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = 2 * kk + half;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pe = tc::ex2(fmaf(s[j][e], scale_log2, e < 2 ? -l0 : -l1));
+            if (need_mask) {
+              const int key = k0 + j * 8 + 2 * t + (e & 1);
+              if (key >= S || (causal && key > (e < 2 ? row0 : row1))) pe = 0.f;
+            }
+            ds[half][e] = pe * (dpm[j][e] - (e < 2 ? d0 : d1));
+          }
+        }
+        uint32_t dh[4], dl[4];
+        split_a(ds, dh, dl);
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp)
+          mma_split(dq_acc[2 * dp], dq_acc[2 * dp + 1], dh, dl,
+                    Ks + tr_off + kk * 16 * LD + dp * 16);
+      }
+    }
+    __syncthreads();                       // every warp is done with this stage
+  }
+
+  bf16* const dqb = dq + bh * head;
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    const int col = d * 8 + 2 * t;
+    if (row0 < S)
+      *reinterpret_cast<uint32_t*>(dqb + static_cast<long long>(row0) * HD + col) =
+          tc::pack_bf16(dq_acc[d][0] * scale, dq_acc[d][1] * scale);
+    if (row1 < S)
+      *reinterpret_cast<uint32_t*>(dqb + static_cast<long long>(row1) * HD + col) =
+          tc::pack_bf16(dq_acc[d][2] * scale, dq_acc[d][3] * scale);
+  }
+}
+
+// ------------------------------------------------------------------------------------------
+// launchers
+// ------------------------------------------------------------------------------------------
+
+float head_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_cast<double>(hd))); }
+
+// D = rowsum(dO o O) into dvec
+template <typename T>
+int launch_dot(const void* o, const void* dout, void* dvec, long long rows, int hd,
+               cudaStream_t stream) {
+  const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_bwd_dot<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(dvec), rows,
+      hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the CUDA-core kernels
 template <int HD, typename T>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
            const void* dout, void* dq, void* dk, void* dv, void* dvec, long long B, long long H,
@@ -355,7 +784,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   err = cudaFuncSetAttribute(attn_bwd_dq<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));  // f32(hd**-0.5)
+  const float scale = head_scale(HD);  // f32(hd**-0.5)
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -363,13 +792,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(dvec);
 
-  const long long rows = B * H * S;
-  const long long dot_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (dot_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  attn_bwd_dot<T><<<static_cast<unsigned>(dot_blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(o), dop, dp, rows, HD);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int e = launch_dot<T>(o, dout, dvec, B * H * S, HD, stream);
+  if (e != 0) return e;
 
   const unsigned n_t = static_cast<unsigned>((S + C::BT - 1) / C::BT);
   attn_bwd_dkdv<HD, T><<<dim3(n_t, static_cast<unsigned>(KV), static_cast<unsigned>(B)),
@@ -385,26 +809,49 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o, const void* lse,
-             const void* dout, void* dq, void* dk, void* dv, void* dvec, long long B, long long H,
-             long long KV, long long S, long long hd, int causal, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
-  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch<16, T>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
-    case 32: return launch<32, T>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
-    case 64: return launch<64, T>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
-    case 128:
-      return launch<128, T>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
-    case 160:
-      return launch<160, T>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
-    case 256:
-      return launch<256, T>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// the tensor-core kernels (bf16)
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, const void* o, const void* lse,
+              const void* dout, void* dq, void* dk, void* dv, void* dvec, long long B,
+              long long H, long long KV, long long S, int causal, cudaStream_t stream) {
+  using C = TcCfg<HD>;
+  const long long n_kt = (S + C::BKEY - 1) / C::BKEY;
+  const long long n_qt = (S + C::BQQ - 1) / C::BQQ;
+  if (n_kt * KV * B > 0x7fffffffLL || n_qt * H * B > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_tc<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::SMEM_DKDV));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(attn_bwd_dq_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::SMEM_DQ));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = head_scale(HD);
+  const float scale_log2 = scale * kLog2e;  // as the forward's bf16 route
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dp = static_cast<const float*>(dvec);
+
+  int e = launch_dot<bf16>(o, dout, dvec, B * H * S, HD, stream);
+  if (e != 0) return e;
+  attn_bwd_dkdv_tc<HD><<<static_cast<unsigned>(n_kt * KV * B), kTcThreads, C::SMEM_DKDV,
+                         stream>>>(
+      qp, kp, vp, dop, lp, dp, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<int>(B), static_cast<int>(H), static_cast<int>(KV), static_cast<int>(S),
+      causal, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_dq_tc<HD><<<static_cast<unsigned>(n_qt * H * B), kTcThreads, C::SMEM_DQ, stream>>>(
+      qp, kp, vp, dop, lp, dp, static_cast<bf16*>(dq), static_cast<int>(B),
+      static_cast<int>(H), static_cast<int>(KV), static_cast<int>(S), static_cast<int>(n_qt),
+      causal, scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
+
+bool bad_sizes(long long H, long long KV) { return KV <= 0 || H % KV != 0; }
 
 }  // namespace
 
@@ -418,16 +865,43 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* dout, void* dq, void* dk, void* dv,
                             void* dvec, long long B, long long H, long long KV, long long S,
                             long long hd, int causal, void* stream) {
-  return dispatch<float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, hd, causal,
-                         stream);
+  if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_sizes(H, KV)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch<16, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 32: return launch<32, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 64: return launch<64, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 128:
+      return launch<128, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 160:
+      return launch<160, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 256:
+      return launch<256, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
+// the route table: the tensor cores at hd 16-128, the CUDA cores at hd 160 and 256
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                              const void* lse, const void* dout, void* dq, void* dk, void* dv,
                              void* dvec, long long B, long long H, long long KV, long long S,
                              long long hd, int causal, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, hd,
-                                 causal, stream);
+  if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_sizes(H, KV)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_tc<16>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 32: return launch_tc<32>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 64: return launch_tc<64>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 128:
+      return launch_tc<128>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 160:
+      return launch<160, __nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 256:
+      return launch<256, __nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

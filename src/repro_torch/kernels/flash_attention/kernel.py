@@ -7,6 +7,13 @@ backward's f32 scratch for rowsum(dO o O)), launches on PyTorch's current
 stream and raises if the launch returned an error.  ``LAUNCHES`` counts
 one per wrapper call that launched (the backward's call runs three
 kernels).
+
+The backward has two routes (``bwd_route``, mirroring the C entry
+points): bf16 at a head dim in ``TC_BWD_HEAD_DIMS`` runs on the tensor
+cores (``mma.sync``, P and dS split into bf16 hi + lo), everything else
+(f32, and bf16 at hd 160 and 256) on the CUDA cores in f32.
+``BWD_ROUTE_LAUNCHES`` counts the backward's calls by route, so a run can
+show which kernels it went through.
 """
 from __future__ import annotations
 
@@ -15,14 +22,28 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+BWD_ROUTE_LAUNCHES = {"tensor_cores": 0, "cuda_cores": 0}
 
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+# the backward's tensor-core route (bf16 only): csrc/flash_attention_bwd.cu's
+# flash_attention_bwd_bf16 switch; at hd 160 and 256 its f32 dK/dV
+# accumulators would not fit a warp's registers
+TC_BWD_HEAD_DIMS = (16, 32, 64, 128)
 _ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BWD_ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernels a (dtype, head dim) runs: ``"tensor_cores"``
+    or ``"cuda_cores"``."""
+    if dtype == torch.bfloat16 and hd in TC_BWD_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _check_qkv(q, k, v) -> tuple[int, int, int, int, int]:
@@ -73,7 +94,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal: bool = True):
     """The gradient of :func:`flash_attention_kernel`: q, o and do
     (B,H,S,hd), k/v (B,KV,S,hd), one dtype (f32 or bf16), lse (B,H,S) f32
-    from the forward, all contiguous -> (dq, dk, dv) in the input dtype."""
+    from the forward, all contiguous -> (dq, dk, dv) in the input dtype.
+    The route follows :func:`bwd_route`; both are deterministic (no
+    atomics: two calls give the same bits)."""
     B, H, KV, S, hd = _check_qkv(q, k, v)
     for name, t in (("o", o), ("do", do)):
         _build.check_tensor(t, name, (q.dtype,), (B, H, S, hd))
@@ -94,4 +117,5 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal: bool = True):
                  _build.stream_handle(q.device))
     _build.check(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
+    BWD_ROUTE_LAUNCHES[bwd_route(q.dtype, hd)] += 1
     return dq, dk, dv

@@ -5,8 +5,9 @@ the CUDA kernels (:mod:`.kernel`), which launch or raise.
 On a card, a call that needs a gradient (grad mode on and any input
 requiring grad) runs as a ``torch.autograd.Function``: the forward kernel
 also writes each row's log-sum-exp, and the backward is the hand-written
-backward kernel.  A call without grad (serving, ``torch.no_grad``) runs
-the forward alone and writes no log-sum-exp."""
+backward kernel (bf16 at hd 16-128 on the tensor cores, the rest on the
+CUDA cores: ``kernel.bwd_route``).  A call without grad (serving,
+``torch.no_grad``) runs the forward alone and writes no log-sum-exp."""
 from __future__ import annotations
 
 import torch

@@ -7,6 +7,9 @@ port's ``flash_attention``, which on a CPU tensor is its plain version.
 The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it
 against the plain version there).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -18,8 +21,10 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as ref_oracle  # noqa: E402
 from repro.models.attention import full_causal_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as kernel_module  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    HEAD_DIMS, flash_attention_bwd_kernel, flash_attention_kernel,
+    BWD_ROUTE_LAUNCHES, HEAD_DIMS, TC_BWD_HEAD_DIMS, bwd_route,
+    flash_attention_bwd_kernel, flash_attention_kernel,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -279,3 +284,129 @@ def test_bwd_wrapper_refuses_what_its_kernel_does_not_take():
     q24 = torch.zeros((B, H, S, 24))
     with pytest.raises(ValueError, match="head dim 24"):
         flash_attention_bwd_kernel(q24, q24, q24, q24, lse, q24)
+
+
+# -- the CUDA backward's bf16 (tensor-core) route, emulated on the CPU --------
+
+# chip_smoke.py's BWD_TOL["bfloat16"]: (atol, rtol) of the bf16 backward
+SMOKE_BWD_BF16_TOL = (8e-3, 8e-3)
+
+
+def _split_bf16(x):
+    """x as the sum of two bf16 values in f32: hi = bf16(x), lo =
+    bf16(x - hi) (``tc::split_bf16``)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def tensor_core_bwd_emulation(q, k, v, o, lse, do, *, causal=True):
+    """The bf16 route of ``csrc/flash_attention_bwd.cu`` (hd 16-128) in
+    plain PyTorch, with its rounding: f32 scores and dP of the bf16 inputs
+    (exact products, f32 sums), P = 2^(S scale log2 e - LSE log2 e) with the
+    masked entries exactly 0, D = rowsum(dO o O) in f32, dS = P o (dP - D)
+    in f32; P and dS enter the accumulating products as bf16 hi + lo
+    halves, each multiplying the exact bf16 operand, summed in f32; dQ, dK
+    and dV rounded to the input dtype at the end."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    log2e = np.float32(np.log2(np.e))
+    scale = float(np.float32(hd ** -0.5))
+    scale_log2 = float(np.float32(scale) * log2e)
+    qf = q.float().reshape(B, KV, G, S, hd)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    dof = do.float().reshape(B, KV, G, S, hd)
+    p = torch.exp2((qf @ kf.transpose(-1, -2)) * scale_log2
+                   - lse.float().reshape(B, KV, G, S, 1) * float(log2e))
+    if causal:
+        p = torch.where(torch.ones((S, S), dtype=torch.bool).tril(), p,
+                        torch.zeros_like(p))
+    dvec = (dof * o.float().reshape(B, KV, G, S, hd)).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - dvec)
+    p, ds = _split_bf16(p), _split_bf16(ds)
+    dv = torch.einsum("bkgqs,bkgqh->bksh", p, dof)
+    dk = torch.einsum("bkgqs,bkgqh->bksh", ds, qf) * scale
+    dq = (ds @ kf) * scale
+    return (dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _tc_bwd_cases():
+    """chip_smoke.py's shapes that fit the CPU: hd 16/32/64/128 x S 1, 17,
+    63, 64, 65, 130; GQA 8:1 and 4:1 in turn; unmasked at S 17 and 65."""
+    cases = []
+    for hd in TC_BWD_HEAD_DIMS:
+        for i, S in enumerate((1, 17, 63, 64, 65, 130)):
+            cases.append((2, 8, 1 if i % 2 == 0 else 2, S, hd,
+                          S not in (17, 65)))
+    return cases
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal", _tc_bwd_cases())
+def test_tensor_core_bwd_rounding_matches_the_reference(B, H, KV, S, hd,
+                                                        causal):
+    """The bf16 route's rounding (P and dS as bf16 hi + lo) within the
+    smoke's bf16 tolerance (8e-3 abs, 8e-3 rel) of ``jax.vjp`` of the
+    reference's oracle and, when causal, of ``full_causal_attention``, on
+    the same bf16-valued q, k, v and dO (the vjp in f32).  The output and
+    log-sum-exp fed to the emulation are the exact forward's (the oracle's
+    f32 output, the f32 log-sum-exp), so that the comparison measures the
+    backward's own rounding: the bf16 output the forward kernel writes moves
+    D = rowsum(dO o O) by its rounding for any backward, which the next test
+    holds the way chip_smoke.py does."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _bwd_inputs(B, H, KV, S, hd, seed=8))
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    fns = [lambda a, b, c: ref_oracle(a, b, c, causal=causal)]
+    if causal:
+        fns.append(lambda a, b, c: jnp.swapaxes(full_causal_attention(
+            *(jnp.swapaxes(t, 1, 2) for t in (a, b, c))), 1, 2))
+    o = torch.from_numpy(np.array(fns[0](jq, jk, jv)))
+    lse = attention_lse_ref(q.float(), k.float(), causal=causal)
+    got = tensor_core_bwd_emulation(q, k, v, o, lse, do, causal=causal)
+    atol, rtol = SMOKE_BWD_BF16_TOL
+    for fn in fns:
+        _, vjp = jax.vjp(fn, jq, jk, jv)
+        for name, g, w in zip("qkv", got, vjp(jdo)):
+            assert g.dtype == torch.bfloat16
+            np.testing.assert_allclose(_f32(g), np.asarray(w), atol=atol,
+                                       rtol=rtol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal", _tc_bwd_cases())
+def test_tensor_core_bwd_rounding_matches_the_plain_formulas(B, H, KV, S, hd,
+                                                             causal):
+    """chip_smoke.py's check, emulated: the bf16 route against
+    ``attention_bwd_ref`` (the plain formulas in f32) from the same bf16
+    output (the forward's tensor-core emulation) and row log-sum-exp,
+    within the smoke's bf16 tolerance."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _bwd_inputs(B, H, KV, S, hd, seed=9))
+    o = tensor_core_emulation(q, k, v, causal=causal)
+    lse = attention_lse_ref(q.float(), k.float(), causal=causal)
+    got = tensor_core_bwd_emulation(q, k, v, o, lse, do, causal=causal)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    atol, rtol = SMOKE_BWD_BF16_TOL
+    for name, g, w in zip("qkv", got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_backward_route_table(dtype, hd):
+    """bf16 at hd 16-128 takes the tensor-core kernels, f32 and bf16 at hd
+    160 and 256 the CUDA-core ones; ``TC_BWD_HEAD_DIMS`` is exactly the
+    head dims ``flash_attention_bwd_bf16`` sends to ``launch_tc``."""
+    want = ("tensor_cores" if dtype == torch.bfloat16 and hd <= 128
+            else "cuda_cores")
+    assert bwd_route(dtype, hd) == want
+    src = (Path(kernel_module.__file__).parents[1] / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    bf16_entry = src[src.index("int flash_attention_bwd_bf16("):]
+    assert tuple(int(d) for d in re.findall(r"launch_tc<(\d+)>",
+                                            bf16_entry)) == TC_BWD_HEAD_DIMS
+    assert set(BWD_ROUTE_LAUNCHES) == {"tensor_cores", "cuda_cores"}
+    BWD_ROUTE_LAUNCHES[want] += 1
+    kernel_module.reset_launches()
+    assert set(BWD_ROUTE_LAUNCHES.values()) == {0}
