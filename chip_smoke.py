@@ -64,6 +64,18 @@ Phases, each printing one JSON line:
             plain formulas and the backward of scaled_dot_product_attention
             (torch.autograd.grad), which the port never calls, and the
             training forward (with the log-sum-exp) beside SDPA's forward;
+            rglru_scan_bwd bit for bit against its plain backward
+            (``rglru_scan_bwd_ref``) at recurrentgemma-9b's training shape
+            (2, 1024, 4096) and at S 1 and 17, W 100 and 130, B 1;
+            ssd_scan_bwd against ``ssd_scan_bwd_ref`` in f32 from the same
+            values at mamba2-370m's training shape (4 x 2048, 32 heads, P
+            64, N 128, 8 chunks of 256), f32 and bf16, and at one chunk, Q
+            100, H 3, 10 and 12 (not multiples of the 8-head block), P 16
+            and 128, N 16, 48 and 64: f32 within 1e-4 of each output's
+            max-abs, bf16 within 2**-7 of it (about two bf16 ulps of the
+            largest element; dcums, f32, within 1e-4); two calls give the
+            same bits; both timed (CUDA events and device time) beside the
+            plain version and the bound;
 5. session: the state-migration path through
             ``repro_torch.launch.notebook.run_notebook`` on the card, two
             sessions under the paper's single-cell policy (the first runs
@@ -152,14 +164,20 @@ Phases, each printing one JSON line:
             memory; full demo-100m checkpointed at step 2 (codec none) and
             resumed for steps 2-3 from the bits of the parameters and
             optimizer state saved, losses equal to the unbroken run's within
-            1e-3, the hash kernels launched; a reduced mamba2-370m and
-            recurrentgemma-9b training step raise NotImplementedError (no
-            SSD or RG-LRU backward kernel yet);
-14. train_agree: reduced yi-6b, minicpm-2b, qwen2-moe-a2.7b, internvl2-2b
-            and whisper-tiny in f32, one LM.loss and its backward on the
-            card and on the CPU with the same weights: loss within 1e-5,
-            every gradient leaf within 1e-4 of its max-abs, one flash
-            forward and one backward launch per attention layer on the
+            1e-3, the hash kernels launched; full mamba2-370m through the
+            CLI (batch 4 x seq 2048, 4 steps at lr 2e-5: 48 ssd_scan and 48
+            ssd_scan_bwd launches a step) and recurrentgemma-9b at full
+            width cut to 6 of its 38 layers through the CLI's step function
+            (batch 2 x seq 1024, 4 steps: 4 rglru_scan, 4 rglru_scan_bwd, 2
+            flash_attention and 2 flash_attention_bwd launches a step), each
+            with finite and falling losses, seconds per step, tokens/s, peak
+            device memory and one traced step;
+14. train_agree: reduced yi-6b, minicpm-2b, qwen2-moe-a2.7b, internvl2-2b,
+            whisper-tiny, mamba2-370m and recurrentgemma-9b (seq 48 and 64)
+            in f32, one LM.loss and its backward on the card and on the CPU
+            with the same weights: loss within 1e-5, every gradient leaf
+            within 1e-4 of its max-abs (1e-3 for mamba2), one forward and
+            one backward launch per attention, ssm and rec layer on the
             card, none on the CPU; two adamw_update steps on the CPU's
             gradients on each side, masters within 1e-6 of each max-abs.
 
@@ -1204,6 +1222,198 @@ def phase_flash_bwd() -> list[dict]:
              "library_ms": library_ms, "library_call": library_call,
              "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
              "forward_with_lse": forward, "flops": flops, "bytes": nbytes,
+             "checked_shapes": checked}]
+
+
+# the scan backwards against their plain backward formulas in f32 from the
+# same values: the RG-LRU bit for bit; the SSD in f32 within 1e-4 of each
+# output's max-abs (sums in another order), and from bf16 inputs (dxdt, dBm
+# and dCm rounded once to bf16) within 2**-7 of each output's max-abs, about
+# two bf16 ulps of its largest element, dcums (f32) within 1e-4
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+
+
+def ssd_bwd_work(B, S, H, P, N, Q, dtype_bytes, with_dstate):
+    """(flops, bytes) of the SSD backward's formulas (ssd_scan_bwd_ref):
+    C B^T's lower triangle once per (b, chunk) (the heads share one B/C
+    group); per (b, h, chunk) the decay mask, (G o L)^T dY, tril(dY X^T),
+    dG B, dG^T C and the row and column sums over the triangle, and the
+    (Q, P, N) products dY s, X dS, (B o w) dS^T, dY^T (C o e) and the
+    recomputed chunk state X^T (B o w) with their scalings; the heads'
+    sums of dB and dC.  Bytes: each input read once, each output written
+    once."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    flops = B * nc * tri * 2 * N + B * H * nc * (
+        tri * (4 * P + 4 * N + 7) + 10 * Q * P * N + 12 * Q * N + 6 * P * N
+        + 6 * Q)
+    nbytes = (2 * 2 * dtype_bytes * B * S * H * P + 2 * 2 * dtype_bytes * B * S * N
+              + 2 * 4 * B * H * S + (4 * B * H * P * N if with_dstate else 0))
+    return flops, nbytes
+
+
+def phase_scan_bwd() -> list[dict]:
+    """The scans' backward kernels against their plain backward formulas on
+    the card.  rglru_scan_bwd (from the forward kernel's h) bit for bit at
+    recurrentgemma-9b's training shape (2, 1024, 4096) and at S 1 and 17, W
+    100 and 130 (not multiples of the 128-channel block), B 1, with the
+    final state's gradient given and None.  ssd_scan_bwd in f32 and bf16 at
+    mamba2-370m's training shape (4, 2048, 32 heads, P 64, N 128, Q 256: 8
+    chunks), the final state's gradient None (the training path's) and
+    given, and at one chunk, Q 100 (ragged against the 64-row tiles), H 3,
+    10 and 12 (not multiples of the 8-head block), P 16 and 128, N 16, 48
+    and 64, B 1, within ``SSD_BWD_TOL``.  Two calls give the same bits.
+    Each is timed at its training shape (CUDA events, and each launch's
+    device time from torch.profiler) beside its plain version and its
+    bound; the SSD backward on its bf16 inputs (the training path's) and
+    on f32 inputs.  Returns their rows of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rg_lru import kernel as rk
+    from repro_torch.kernels.rg_lru.ref import rglru_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ops import arrange
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(shape, dtype=f32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # -- RG-LRU backward -------------------------------------------------
+    rg = get_config("recurrentgemma-9b")
+    main_rg = (RG_TRAIN_BATCH, RG_TRAIN_SEQ, rg.lru_width)
+
+    def rg_inputs(B, S, W, with_dlast):
+        a = torch.sigmoid(randn((B, S, W))) * 0.98
+        h, _ = rk.rglru_scan_kernel(a, randn((B, S, W)) * 0.1)
+        return a, h, randn((B, S, W)), randn((B, W)) if with_dlast else None
+
+    rg_checked = []
+    for (B, S, W), with_dlast in [(main_rg, False), (main_rg, True),
+                                  ((1, 1, 4096), True), ((2, 17, 100), False),
+                                  ((1, 17, 130), True), ((3, 77, 33), False),
+                                  ((1, 2048, 128), True)]:
+        ins = rg_inputs(B, S, W, with_dlast)
+        got = rk.rglru_scan_bwd_kernel(*ins)
+        want = rglru_scan_bwd_ref(*ins)
+        again = rk.rglru_scan_bwd_kernel(*ins)
+        if not all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(got, want, again)):
+            raise AssertionError(f"rglru_scan_bwd {B, S, W} dlast "
+                                 f"{with_dlast}: not bit-identical to the "
+                                 f"plain backward, or across two calls")
+        rg_checked.append([B, S, W, with_dlast, max(
+            float((x - y).abs().max()) for x, y in zip(got, want))])
+    a, h, dh, _ = rg_inputs(*main_rg, False)
+    B, S, W = main_rg
+    rg_ms = time_ms(lambda: rk.rglru_scan_bwd_kernel(a, h, dh), REPS)
+    rg_dev = device_kernels_ms(lambda: rk.rglru_scan_bwd_kernel(a, h, dh))
+    rg_plain = time_ms(lambda: rglru_scan_bwd_ref(a, h, dh), 2)
+    # a, h, dh read, da and db written; two products and a sum per element
+    rg_bound, rg_by = bound(5 * 4 * B * S * W, 3 * B * S * W)
+    del a, h, dh
+
+    # -- SSD backward ----------------------------------------------------
+    mb = get_config(MAMBA_TRAIN_ARCH)
+    main_ssd = (MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, mb.ssm_heads,
+                mb.ssm_headdim, mb.ssm_state, mb.ssm_chunk)
+
+    def ssd_inputs(B, S, H, P, N, Q, dtype, with_dstate):
+        dt = F.softplus(randn((B, S, H)) - 1)
+        A = -torch.exp(randn((H,)) * 0.3)
+        ins = arrange(randn((B, S, H, P), dtype), dt, A,
+                      randn((B, S, N), dtype), randn((B, S, N), dtype), Q)
+        return (*ins, randn(ins[0].shape, dtype),
+                randn((B, H, P, N)) if with_dstate else None)
+
+    cases = [(main_ssd, bf16, False), (main_ssd, f32, False),
+             (main_ssd, bf16, True), ((2, 256, 4, 64, 128, 256), bf16, True),
+             ((1, 256, 3, 64, 128, 256), f32, False),
+             ((1, 500, 12, 64, 128, 100), bf16, False),
+             ((1, 500, 12, 64, 128, 100), f32, True),
+             ((1, 512, 10, 128, 64, 256), bf16, True),
+             ((1, 512, 10, 128, 128, 256), f32, False),
+             ((3, 200, 3, 16, 48, 100), f32, True),
+             ((2, 128, 9, 16, 16, 64), bf16, False),
+             ((2, 64, 8, 16, 16, 32), f32, True),
+             ((1, 256, 2, 32, 64, 64), bf16, True)]
+    errs = {"float32": 0.0, "bfloat16": 0.0}     # of each output's max-abs
+    abs_errs = {"float32": 0.0, "bfloat16": 0.0}
+    checked = []
+    for (B, S, H, P, N, Q), dtype, with_dstate in cases:
+        name = str(dtype).removeprefix("torch.")
+        ins = ssd_inputs(B, S, H, P, N, Q, dtype, with_dstate)
+        got = sk.ssd_scan_bwd_kernel(*ins)
+        want = ssd_scan_bwd_ref(*ins)
+        err = 0.0
+        for what, x, y in zip(("dxdt", "dBm", "dCm", "dcums"), got, want):
+            scale = max(float(y.float().abs().max()), 1e-30)
+            e = float((x.float() - y.float()).abs().max()) / scale
+            tol = SSD_BWD_TOL["float32" if x.dtype == f32 else name]
+            if x.dtype != y.dtype or not e <= tol:
+                raise AssertionError(f"ssd_scan_bwd {B, S, H, P, N, Q} "
+                                     f"{name} {what}: {e} of max-abs {scale}")
+            err = max(err, e)
+            abs_errs[name] = max(abs_errs[name], e * scale)
+        again = sk.ssd_scan_bwd_kernel(*ins)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"ssd_scan_bwd {B, S, H, P, N, Q} {name}: "
+                                 f"two calls differ")
+        errs[name] = max(errs[name], err)
+        checked.append([B, S, H, P, N, Q, name, with_dstate, err])
+        del ins, got, want, again
+    B, S, H, P, N, Q = main_ssd
+    ins = ssd_inputs(B, S, H, P, N, Q, bf16, False)
+    ssd_ms = time_ms(lambda: sk.ssd_scan_bwd_kernel(*ins), REPS)
+    ssd_dev = device_kernels_ms(lambda: sk.ssd_scan_bwd_kernel(*ins))
+    ssd_plain = time_ms(lambda: ssd_scan_bwd_ref(*ins), max(2, REPS // 10))
+    ins32 = [t if t is None or t.dtype == f32 else t.float() for t in ins]
+    ssd_ms_f32 = time_ms(lambda: sk.ssd_scan_bwd_kernel(*ins32),
+                         max(2, REPS // 4))
+    del ins, ins32
+    flops, nbytes = ssd_bwd_work(B, S, H, P, N, Q, 2, False)
+    ssd_bound, ssd_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    torch.cuda.synchronize()
+    emit({"phase": "lm_kernels_bwd", "kernels": ["rglru_scan_bwd",
+                                                 "ssd_scan_bwd"],
+          "card": card_line(), "rglru_scan_bwd_checked": rg_checked,
+          "ssd_scan_bwd_checked": checked,
+          "tolerances": {"rglru_scan_bwd": "bit-identical",
+                         "ssd_scan_bwd_of_max_abs": SSD_BWD_TOL},
+          "ssd_scan_bwd_err_of_max_abs": errs,
+          "ssd_scan_bwd_max_abs_err": abs_errs, "bit_identical_reruns": True,
+          "seconds": time.perf_counter() - t_phase})
+    return [{"name": "rglru_scan_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
+             # no Pallas backward: the reference differentiates its
+             # associative scan (train.py:63, jax.value_and_grad)
+             "replaces": "src/repro/models/griffin.py:55",
+             "launches": 0, "max_abs_err": max(r[-1] for r in rg_checked),
+             "ms": rg_ms,
+             "device_kernels_ms": rg_dev, "plain_ms": rg_plain,
+             "bound_ms": rg_bound, "bound_by": rg_by, "library_ms": None,
+             "timed_shape": [*main_rg, "float32"],
+             "checked_shapes": rg_checked},
+            {"name": "ssd_scan_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+             # no Pallas backward: the reference differentiates its XLA
+             # ssd_chunked (train.py:63, jax.value_and_grad)
+             "replaces": "src/repro/models/ssm.py:43",
+             "launches": 0, "max_abs_err": max(abs_errs.values()),
+             "max_abs_err_f32": abs_errs["float32"],
+             "max_abs_err_bf16": abs_errs["bfloat16"],
+             "err_of_max_abs": errs, "ms": ssd_ms,
+             "ms_f32": ssd_ms_f32, "device_kernels_ms": ssd_dev,
+             "plain_ms": ssd_plain, "bound_ms": ssd_bound,
+             "bound_by": ssd_by, "library_ms": None, "flops": flops,
+             "bytes": nbytes, "timed_shape": [*main_ssd, "bfloat16"],
              "checked_shapes": checked}]
 
 
@@ -2336,8 +2546,8 @@ def card_line() -> str:
 
 
 def lm_kernels():
-    """The LM kernels' wrapper modules: flash_attention (forward and
-    backward), ssd_scan, rglru_scan."""
+    """The LM kernels' wrapper modules: flash_attention, ssd_scan and
+    rglru_scan, each forward and backward."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rg_lru import kernel as rk
     from repro_torch.kernels.ssd_scan import kernel as sk
@@ -2353,25 +2563,35 @@ def expected_launches(cfg, prompt: int) -> dict:
     scan in every rec layer, flash in every attention layer except where
     the reference's dispatch takes banded attention (a local window, and S
     a multiple of it above it), and in every encoder layer of an encdec
-    (unmasked)."""
+    (unmasked); no backward."""
     kinds = cfg.layer_kinds()
     w = cfg.local_window if cfg.block_pattern else 0
     banded = bool(w) and prompt > w and prompt % w == 0
     encoder = cfg.encoder_layers if cfg.family == "encdec" else 0
     return {"flash_attention": (0 if banded else kinds.count("attn")) + encoder,
             "flash_attention_bwd": 0,
-            "ssd_scan": kinds.count("ssm"), "rglru_scan": kinds.count("rec")}
+            "ssd_scan": kinds.count("ssm"), "ssd_scan_bwd": 0,
+            "rglru_scan": kinds.count("rec"), "rglru_scan_bwd": 0}
+
+
+def train_launches(cfg, seq: int) -> dict:
+    """One training step's launches: each kernel of :func:`expected_launches`
+    once in the forward, and its backward once."""
+    fwd = expected_launches(cfg, seq)
+    return {**fwd, "flash_attention_bwd": fwd["flash_attention"],
+            "ssd_scan_bwd": fwd["ssd_scan"], "rglru_scan_bwd": fwd["rglru_scan"]}
 
 
 def flash_only(n: int) -> dict:
     return {"flash_attention": n, "flash_attention_bwd": 0, "ssd_scan": 0,
-            "rglru_scan": 0}
+            "ssd_scan_bwd": 0, "rglru_scan": 0, "rglru_scan_bwd": 0}
 
 
 # one prefill's launches, stated where the config alone decides them
 SERVE_LAUNCHES = {
     "recurrentgemma-9b": {"flash_attention": 12, "flash_attention_bwd": 0,
-                          "ssd_scan": 0, "rglru_scan": 26},
+                          "ssd_scan": 0, "ssd_scan_bwd": 0, "rglru_scan": 26,
+                          "rglru_scan_bwd": 0},
     "stablelm-12b": flash_only(40),
     "qwen2-moe-a2.7b": flash_only(24),
     "qwen3-moe-235b-a22b": flash_only(QWEN3_LAYERS),
@@ -2555,9 +2775,21 @@ def phase_serve_agree() -> None:
 
 
 DEMO_BATCH, DEMO_SEQ = 4, 256          # the checkpoint leg: full demo-100m
-TRAIN_AGREE = ("yi-6b", "minicpm-2b", "qwen2-moe-a2.7b", "internvl2-2b",
-               "whisper-tiny")
-TRAIN_AGREE_SEQ = 48
+# full mamba2-370m: 4 x 2048 tokens, 8 chunks of 256 (the carry runs both
+# ways); recurrentgemma-9b at full width cut to 6 of its 38 layers (two
+# rec, rec, attn groups, 3.29 B parameters with the untied 256,000 x 4096
+# embedding and head: 12 and 9 layers, 4.49 B and 3.89 B, ran out of the
+# card's 80 GB, PERF.md §4), 2 x 1024 (under the 2048 window: attention
+# through flash)
+MAMBA_TRAIN_ARCH, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = "mamba2-370m", 4, 2048
+RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_SEQ = 6, 2, 1024
+# (arch, seq, each gradient leaf's tolerance of its max-abs): PERF.md §2;
+# mamba2's SSD sums run in another order on the card, as in serving
+TRAIN_AGREE = (("yi-6b", 48, 1e-4), ("minicpm-2b", 48, 1e-4),
+               ("qwen2-moe-a2.7b", 48, 1e-4), ("internvl2-2b", 48, 1e-4),
+               ("whisper-tiny", 48, 1e-4), ("mamba2-370m", 48, 1e-3),
+               ("recurrentgemma-9b", 48, 1e-4),
+               ("recurrentgemma-9b", 64, 1e-4))
 # a resumed run's losses against the unbroken run's, on one card: they
 # agreed bit for bit in every run so far (PERF.md §6); the margin leaves
 # room only for a reduction order that changes between two runs
@@ -2592,11 +2824,23 @@ def phase_train(tmp: Path) -> dict:
        have the bits the unbroken run held after step 2, and both steps'
        losses equal the unbroken run's within 1e-3; the hash kernels
        launch;
-    3. a reduced mamba2-370m and a reduced recurrentgemma-9b training step
-       raise NotImplementedError (no SSD or RG-LRU backward kernel yet)
-       before their scan launches.
+    3. full mamba2-370m (48 layers, d 1024, 32 SSD heads of 64, N 128),
+       seeded bf16 weights, batch 4 x seq 2048 (8 chunks of 256), 4 steps
+       at lr 2e-5 through the CLI: every step launches ssd_scan and
+       ssd_scan_bwd 48 times and nothing else;
+    4. recurrentgemma-9b at full width cut to 6 of its 38 layers (two
+       rec, rec, attn groups; ``dataclasses.replace``, which the CLI
+       cannot name, so the CLI's loop runs here on ``train_step``), seeded
+       bf16 weights, batch 2 x seq 1024 (under the 2048 window: causal
+       attention through flash at hd 256), 4 steps at lr 2e-5: every step
+       launches rglru_scan and rglru_scan_bwd 4 times, flash_attention and
+       flash_attention_bwd twice;
+    legs 3 and 4 check finite and falling losses, print seconds per step,
+    tokens per second, the peak device memory, and the device time by
+    kernel and idle share of one more (traced) step.
     Returns the kernels' launches on the training path."""
     import contextlib
+    import dataclasses
     import gc
     import io
     import os
@@ -2604,11 +2848,14 @@ def phase_train(tmp: Path) -> dict:
 
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.reducer import tree_flatten_with_path
+    from repro_torch.data import TokenPipeline
     from repro_torch.launch import train as tr
     from repro_torch.models import LM
     from repro_torch.models.layers import param_count
+    from repro_torch.optim import init_opt_state
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -2688,9 +2935,9 @@ def phase_train(tmp: Path) -> dict:
     last.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    want = {"flash_attention": n_layers, "flash_attention_bwd": n_layers,
-            "ssd_scan": 0, "rglru_scan": 0}
-    if len(hist) != TRAIN_STEPS or per_step != [want] * TRAIN_STEPS:
+    want = train_launches(cfg, TRAIN_SEQ)
+    if want["flash_attention"] != n_layers or \
+            len(hist) != TRAIN_STEPS or per_step != [want] * TRAIN_STEPS:
         raise AssertionError(f"{TRAIN_ARCH}: launches per step {per_step}, "
                              f"expected {want} x {TRAIN_STEPS}")
     want_routes = {"tensor_cores": n_layers, "cuda_cores": 0}
@@ -2785,40 +3032,127 @@ def phase_train(tmp: Path) -> dict:
           "cli": text.splitlines() + text2.splitlines(),
           "seconds": time.perf_counter() - t_leg})
 
-    # 3. the families whose scans have no backward kernel yet
-    raised = {}
-    for arch, what in (("mamba2-370m", "SSD"), ("recurrentgemma-9b",
-                                                 "RG-LRU")):
-        before = lm_launches()
+    # 3. full mamba2-370m through the CLI, and 4. recurrentgemma-9b at full
+    # width cut to RG_TRAIN_LAYERS layers through the CLI's step function
+    def scan_leg(arch, cfg, batch, seq, run):
+        """Runs ``run()`` (-> per-step history) with the counts per step,
+        the peak memory and one traced step after it; checks the launches
+        per step, finite and falling losses; emits the leg's line."""
+        per_step.clear()
+        per_step_routes.clear()
+        split.clear()
+        torch.cuda.synchronize()
+        at_start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trace_after[0] = TRAIN_STEPS
+        hist, text = run()
+        trace_after[0] = None
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        traced = device_kernels_ms(lambda: step_fn(*last), reps=1)
+        last.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = train_launches(cfg, seq)
+        if len(hist) != TRAIN_STEPS or per_step != [want] * TRAIN_STEPS:
+            raise AssertionError(f"{arch}: launches per step {per_step}, "
+                                 f"expected {want} x {TRAIN_STEPS}")
+        losses = [h["loss"] for h in hist]
+        if not all(finite(h["loss"]) and finite(h["grad_norm"])
+                   for h in hist) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{arch}: losses {losses}, grad norms "
+                                 f"{[h['grad_norm'] for h in hist]}")
+        secs = [h["seconds"] for h in hist]
+        steady = statistics.median(secs[1:])
+        busy = sum(traced.values())
+        scan_bwd = sum(t for k, t in traced.items() if k.startswith("ssd_bwd_")
+                       or k == "rglru_scan_bwd_kernel")
+        emit({"phase": "train", "arch": arch, "card": card_line(),
+              "params": param_count(LM(cfg, max_seq=seq, device="cpu").spec),
+              "layers": cfg.num_layers, "layer_kinds": cfg.layer_kinds(),
+              "d_model": cfg.d_model, "dtype": "bfloat16", "batch": batch,
+              "seq": seq, "steps": TRAIN_STEPS, "lr": float(TRAIN_LR),
+              "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+              "seconds_per_step": secs, "steady_seconds_per_step": steady,
+              "tokens_per_s": [batch * seq / t for t in secs],
+              "steady_tokens_per_s": batch * seq / steady,
+              "peak_memory_bytes": peak, "allocated_at_start": at_start,
+              "wall_seconds_with_init": wall, "launches_per_step": want,
+              "traced_step_device": {
+                  "ms": busy,
+                  "idle_share_of_steady_step":
+                      1 - busy / 1e3 / steady if busy else None,
+                  "scan_bwd_ms": scan_bwd,
+                  "top_kernels_ms": dict(sorted(traced.items(),
+                                                key=lambda kv: -kv[1])[:12])},
+              "cli": text.splitlines()})
+
+    mcfg = get_config(MAMBA_TRAIN_ARCH)
+    scan_leg(MAMBA_TRAIN_ARCH, mcfg, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
+             lambda: cli(["--arch", MAMBA_TRAIN_ARCH, "--steps",
+                          str(TRAIN_STEPS), "--batch", str(MAMBA_TRAIN_BATCH),
+                          "--seq", str(MAMBA_TRAIN_SEQ), "--lr", TRAIN_LR]))
+
+    rcfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                               num_layers=RG_TRAIN_LAYERS)
+
+    def rg_run():
+        """The CLI's loop (``train.main``) for a config the CLI cannot name:
+        seeded bf16 weights from ``LM.init``, ``TokenPipeline`` batches, one
+        ``train_step`` a step."""
+        tc = TrainConfig(learning_rate=float(TRAIN_LR),
+                         total_steps=TRAIN_STEPS,
+                         warmup_steps=max(TRAIN_STEPS // 10, 1),
+                         schedule=rcfg.schedule)
+        lm = LM(rcfg, max_seq=RG_TRAIN_SEQ, device="cuda")
+        pipe = TokenPipeline(rcfg, ShapeConfig("smoke", "train", RG_TRAIN_SEQ,
+                                               RG_TRAIN_BATCH), seed=0)
+        params = lm.init(tc.seed, torch.bfloat16)
+        opt = init_opt_state(params)
+        hist, lines = [], []
+        tr.train_step, tr.adamw_update = counted, timed(update_fn,
+                                                        "optimizer")
+        LM.loss = timed(loss_fn, "forward")
         try:
-            cli(["--arch", arch, "--reduced", "--steps", "1", "--batch", "2",
-                 "--seq", "64"])
-        except NotImplementedError as e:
-            if what not in str(e) or "queue A" not in str(e):
-                raise
-            raised[arch] = str(e)
-        else:
-            raise AssertionError(f"{arch}: a training step on the card "
-                                 f"returned")
-        after = lm_launches()
-        if after["ssd_scan"] != before["ssd_scan"] or \
-                after["rglru_scan"] != before["rglru_scan"]:
-            raise AssertionError(f"{arch}: a scan launched under grad")
+            for step in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                params, opt, m = tr.train_step(lm, tc, params, opt,
+                                               pipe.train_batch(step))
+                lm.params = params
+                loss = float(m["loss"])
+                hist.append({"step": step, "loss": loss,
+                             "lr": float(m["lr"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "seconds": time.perf_counter() - t0})
+                lines.append(f"step {step} loss {loss:.4f} "
+                             f"{hist[-1]['seconds']:.2f}s")
+        finally:
+            tr.train_step, tr.adamw_update, LM.loss = \
+                step_fn, update_fn, loss_fn
+        del lm, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return hist, "\n".join(lines)
+
+    scan_leg("recurrentgemma-9b", rcfg, RG_TRAIN_BATCH, RG_TRAIN_SEQ, rg_run)
     launches = {**state_kernel_counts(), **lm_launches()}
-    emit({"phase": "train", "raised": raised, "launches": launches,
+    emit({"phase": "train", "launches": launches,
           "seconds": time.perf_counter() - t_phase})
     return launches
 
 
 def phase_train_agree() -> None:
-    """Reduced yi-6b, minicpm-2b, qwen2-moe-a2.7b, internvl2-2b and
-    whisper-tiny in f32 with the same weights and batch: one ``LM.loss``
-    and its backward on the card (flash forward and backward kernels) and
-    on the CPU (the plain versions, which the CPU tests hold to the JAX
+    """Reduced yi-6b, minicpm-2b, qwen2-moe-a2.7b, internvl2-2b,
+    whisper-tiny, mamba2-370m and recurrentgemma-9b (seq 48: full causal
+    attention through flash, and 64: banded) in f32 with the same weights
+    and batch: one ``LM.loss`` and its backward on the card (the flash,
+    SSD and RG-LRU forward and backward kernels) and on the CPU (the plain
+    versions and backward formulas, which the CPU tests hold to the JAX
     reference): the loss within 1e-5, every gradient leaf within 1e-4 of
-    its max-abs, exactly one forward and one backward flash launch per
-    attention layer on the card (the backward's on its CUDA-core route,
-    f32) and none on the CPU; then two
+    its max-abs (1e-3 for mamba2), exactly one forward and one backward
+    launch per attention layer (the flash backward on its CUDA-core route,
+    f32), ssm layer and rec layer on the card and none on the CPU; then two
     ``adamw_update`` steps on each side fed the CPU's gradients: every
     master weight within 1e-6 of its leaf's max-abs."""
     import torch
@@ -2836,13 +3170,14 @@ def phase_train_agree() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
     loss_errs, grad_errs, master_errs, ran = {}, {}, {}, {}
-    for arch in TRAIN_AGREE:
+    for arch, S, grad_tol in TRAIN_AGREE:
+        name = f"{arch}/{S}"
         cfg = get_config(arch, reduced=True)
-        S = TRAIN_AGREE_SEQ
         params = LM(cfg, max_seq=S, device="cpu").init(SEED, torch.float32)
         batch = TokenPipeline(cfg, ShapeConfig("t", "train", S, 2),
                               seed=SEED).train_batch(0)
-        fwd = expected_launches(cfg, S)["flash_attention"]
+        step_launches = train_launches(cfg, S)
+        fwd = step_launches["flash_attention"]
         loss, grads, trees = {}, {}, {}
         for dev in ("cuda", "cpu"):
             lm = LM(cfg, max_seq=S, device=dev)
@@ -2854,25 +3189,23 @@ def phase_train_agree() -> None:
             got = {k: n - before[k] for k, n in lm_launches().items()}
             got.update({k: n - routes[k]
                         for k, n in fk.BWD_ROUTE_LAUNCHES.items()})
-            want = ({"flash_attention": fwd, "flash_attention_bwd": fwd,
-                     "ssd_scan": 0, "rglru_scan": 0, "cuda_cores": fwd,
-                     "tensor_cores": 0} if dev == "cuda"
-                    else {k: 0 for k in got})
+            want = ({**step_launches, "cuda_cores": fwd, "tensor_cores": 0}
+                    if dev == "cuda" else {k: 0 for k in got})
             if got != want:
-                raise AssertionError(f"{arch} on {dev}: launches {got}, "
+                raise AssertionError(f"{name} on {dev}: launches {got}, "
                                      f"expected {want}")
             loss[dev] = float(value.detach())
             grads[dev] = {k: t.grad.detach().cpu()
                           for k, t in tree_flatten_with_path(p)}
             trees[dev] = p
         if abs(loss["cuda"] - loss["cpu"]) > 1e-5:
-            raise AssertionError(f"{arch}: loss {loss}")
+            raise AssertionError(f"{name}: loss {loss}")
         worst = 0.0
         for k, want in grads["cpu"].items():
             err = float((grads["cuda"][k] - want).abs().max())
             scale = max(float(want.abs().max()), 1e-30)
-            if err > 1e-4 * scale:
-                raise AssertionError(f"{arch} grad {k}: {err} of {scale}")
+            if err > grad_tol * scale:
+                raise AssertionError(f"{name} grad {k}: {err} of {scale}")
             worst = max(worst, err / scale)
         tc = TrainConfig(warmup_steps=1, total_steps=4, schedule=cfg.schedule)
         masters = {}
@@ -2888,14 +3221,15 @@ def phase_train_agree() -> None:
             err = float((masters["cuda"][k].cpu() - want).abs().max())
             scale = max(float(want.abs().max()), 1e-30)
             if err > 1e-6 * scale:
-                raise AssertionError(f"{arch} master {k}: {err} of {scale}")
+                raise AssertionError(f"{name} master {k}: {err} of {scale}")
             mworst = max(mworst, err / scale)
-        loss_errs[arch] = abs(loss["cuda"] - loss["cpu"])
-        grad_errs[arch], master_errs[arch] = worst, mworst
-        ran[arch] = {"flash_attention": fwd, "flash_attention_bwd": fwd}
-    emit({"phase": "train_agree", "dtype": "float32", "seq": TRAIN_AGREE_SEQ,
-          "tolerance": {"loss": 1e-5, "grad_of_max_abs": 1e-4,
-                        "master_of_max_abs": 1e-6},
+        loss_errs[name] = abs(loss["cuda"] - loss["cpu"])
+        grad_errs[name], master_errs[name] = worst, mworst
+        ran[name] = {k: n for k, n in step_launches.items() if n}
+    emit({"phase": "train_agree", "dtype": "float32",
+          "tolerance": {"loss": 1e-5, "master_of_max_abs": 1e-6,
+                        "grad_of_max_abs": {f"{a}/{n}": t
+                                            for a, n, t in TRAIN_AGREE}},
           "loss_abs_err": loss_errs, "grad_err_of_max_abs": grad_errs,
           "master_err_of_max_abs": master_errs, "card_launches": ran,
           "seconds": time.perf_counter() - t_phase})
@@ -2920,7 +3254,8 @@ def main() -> int:
 
     phase_card()
     phase_build()
-    rows = phase_kernels() + phase_lm_kernels() + phase_flash_bwd()
+    rows = (phase_kernels() + phase_lm_kernels() + phase_flash_bwd()
+            + phase_scan_bwd())
     if args.kernels_only:
         emit({"kernels": rows})
         return 0

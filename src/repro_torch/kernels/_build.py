@@ -68,9 +68,14 @@ SIGNATURES = {
         "ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
         "ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
     },
+    "ssd_scan_bwd": {
+        "ssd_scan_bwd_f32": (_P,) * 13 + (_N,) * 6 + (_P,),
+        "ssd_scan_bwd_bf16": (_P,) * 13 + (_N,) * 6 + (_P,),
+    },
     "rg_lru": {
         "rglru_scan_f32": (_P, _P, _P, _P, _N, _N, _N, _P),
         "rglru_scan_bf16": (_P, _P, _P, _P, _N, _N, _N, _P),
+        "rglru_scan_bwd_f32": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _P),
     },
 }
 
@@ -156,8 +161,8 @@ def check_tensor(t, what: str, dtypes, shape) -> None:
 
 
 def needs_grad(*tensors) -> bool:
-    """Whether autograd would record a call on these tensors: a wrapper
-    whose kernel has no backward refuses such a call on a card."""
+    """Whether autograd would record a call on these tensors: such a call
+    runs as the kernel's ``torch.autograd.Function``."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 

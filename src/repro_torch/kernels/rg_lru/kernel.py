@@ -1,4 +1,5 @@
-"""CUDA RG-LRU scan (``csrc/rg_lru.cu``): the wrapper that launches it.
+"""CUDA RG-LRU scan and its backward (``csrc/rg_lru.cu``): the wrappers
+that launch them.
 
 It checks device, dtypes, shapes and contiguity and raises on anything the
 kernel does not take, allocates the outputs, launches on PyTorch's current
@@ -11,7 +12,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = {"rglru_scan": 0}
+LAUNCHES = {"rglru_scan": 0, "rglru_scan_bwd": 0}
 
 _ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -50,3 +51,35 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor):
     _build.check(err, f"rglru_scan (B={B}, S={S}, W={W})")
     LAUNCHES["rglru_scan"] += 1
     return h, last
+
+
+def rglru_scan_bwd_kernel(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                          dlast: torch.Tensor | None = None):
+    """The gradient of :func:`rglru_scan_kernel` with respect to a and b:
+    a/h/dh (B,S,W) f32 (h the forward's output), dlast (B,W) f32 or None
+    (a zero gradient of the final state), all contiguous -> (da, db) f32
+    (B,S,W), bit for bit ``ref.rglru_scan_bwd_ref``.  Any S >= 1 and W."""
+    if a.dim() != 3:
+        raise ValueError(f"a: expected (B,S,W), got {tuple(a.shape)}")
+    B, S, W = a.shape
+    if S < 1:
+        raise ValueError("the scan needs S >= 1")
+    for name, t in (("a", a), ("h", h), ("dh", dh)):
+        _build.check_tensor(t, name, (torch.float32,), (B, S, W))
+    if dlast is not None:
+        _build.check_tensor(dlast, "dlast", (torch.float32,), (B, W))
+    for t in (h, dh) if dlast is None else (h, dh, dlast):
+        if t.device != a.device:
+            raise ValueError("the inputs lie on different devices")
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    if a.numel() == 0:
+        return da, db
+    lib = _build.load("rg_lru")
+    with torch.cuda.device(a.device):
+        err = lib.rglru_scan_bwd_f32(
+            a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+            None if dlast is None else dlast.data_ptr(), da.data_ptr(),
+            db.data_ptr(), B, S, W, _build.stream_handle(a.device))
+    _build.check(err, f"rglru_scan_bwd (B={B}, S={S}, W={W})")
+    LAUNCHES["rglru_scan_bwd"] += 1
+    return da, db

@@ -9,10 +9,10 @@
 
 ``--device cuda`` (the default) raises without a card.  On a card the
 forward and backward attention run through the hand-written flash kernels
-(forward with its row log-sum-exp, then the backward kernel); the SSD and
-RG-LRU kernels have no backward yet, so the ssm and hybrid families train
-only on the CPU (``--device cpu``: every kernel's plain PyTorch version
-under autograd).  The weights start from ``LM.init(TrainConfig.seed)`` in
+(forward with its row log-sum-exp, then the backward kernel), and the SSD
+and RG-LRU scans through their forward kernels and hand-written backward
+kernels, so every family trains there; ``--device cpu`` runs every
+kernel's plain PyTorch version (the scans' backward as plain formulas).  The weights start from ``LM.init(TrainConfig.seed)`` in
 ``--dtype`` (bf16, as the reference's ``lm.init``); ``--seed`` seeds the
 data.  Each step takes ``TokenPipeline.train_batch(step)``, one
 ``LM.loss`` with its backward and one ``adamw_update``, and prints the

@@ -8,7 +8,10 @@ an XLA ``associative_scan`` and keeps the Pallas kernel as the TPU's route;
 the port's prefill goes through
 :func:`repro_torch.kernels.rg_lru.ops.rglru_scan` (the CUDA kernel on the
 card, its plain version on the CPU), from a zero state: no caller passes
-an initial state on prefill.  The one-token decode step is plain PyTorch,
+an initial state on prefill.  Training goes through the same call: under
+grad it runs the scan's ``autograd.Function``, whose backward is the
+hand-written backward kernel on the card and the plain backward on the
+CPU.  The one-token decode step is plain PyTorch,
 as in the reference.  Gates and coefficients are f32.
 """
 from __future__ import annotations

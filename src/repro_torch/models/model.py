@@ -19,8 +19,8 @@ owns (:mod:`repro_torch.launch.train`); ``prefill`` and ``decode_step``
 serve and build no autograd graph.  Prefill attention, the forward SSD
 scan and the RG-LRU scan go through the hand-written CUDA kernels on a
 card, their plain versions on the CPU.  Under grad on a card, attention
-runs flash's forward and backward kernels; the SSD and RG-LRU kernels
-have no backward yet and raise there.
+and both scans run their forward kernels and their hand-written backward
+kernels.
 """
 from __future__ import annotations
 

@@ -2,10 +2,12 @@
 duality) [arXiv:2405.21060].
 
 The reference's model runs its XLA ``ssd_chunked`` and keeps the Pallas
-SSD kernel as the TPU's route; the port's forward scan goes through
+SSD kernel as the TPU's route; the port's scan goes through
 :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` (the CUDA kernel on the
-card, its plain version on the CPU).  The one-token decode step is plain
-PyTorch, as in the reference.
+card, its plain version on the CPU).  Training goes through the same call:
+under grad it runs the scan's ``autograd.Function``, whose backward is the
+hand-written backward kernel on the card and the plain backward formulas on
+the CPU.  The one-token decode step is plain PyTorch, as in the reference.
 
 Shapes: x (B,S,H,P)  dt (B,S,H)  A (H,)<0  B/C (B,S,N) (one group).
 Decays are computed in f32.

@@ -4,8 +4,10 @@ reference's, on the CPU.
 
 Every input comes from a numpy seed, or from the reference's own ``lm.init``
 weights carried across with ``LM.load_reference``.  On the CPU every kernel
-takes its plain PyTorch version, which autograd differentiates; the card's
-backward kernel is held against the same plain formulas by chip_smoke.py.
+takes its plain PyTorch version, which autograd differentiates (the SSD and
+RG-LRU scans through their ``autograd.Function``s, whose backward on the CPU
+is the plain backward formulas); the card's backward kernels are held
+against the same plain formulas by chip_smoke.py.
 Tolerances (stated per test):
 - loss 1e-5 and every gradient leaf within 1e-4 of the leaf's max-abs in
   f32 (1e-3 for mamba2, whose SSD sums run in another order, as in
@@ -120,13 +122,14 @@ def test_softmax_xent_and_its_gradient_match_the_reference():
 
 
 # ----------------------------------------------------------------------
-# the plain scans' gradients (what the CPU training path differentiates)
+# the scans' gradients (the Functions' plain backward on the CPU)
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("S,chunk", [(64, 32), (48, 32), (32, 32)])
 def test_ssd_scan_gradients_match_jax_grad_of_ssd_chunked(S, chunk):
-    """The port's plain SSD scan under autograd against ``jax.grad`` of the
-    reference's ``ssd_chunked`` (48: ragged, padded as the model pads).
+    """The port's SSD scan under autograd (its Function, the plain backward
+    formulas on the CPU) against ``jax.grad`` of the reference's
+    ``ssd_chunked`` (48: ragged, padded as the model pads).
     f32, within 1e-4 of each gradient's max-abs."""
     rng = np.random.default_rng(1)
     B, H, P, N = 2, 3, 8, 16
@@ -158,8 +161,9 @@ def test_ssd_scan_gradients_match_jax_grad_of_ssd_chunked(S, chunk):
 
 
 def test_rglru_scan_gradients_match_jax_grad_of_the_reference():
-    """The port's RG-LRU (gates and the plain scan) under autograd against
-    ``jax.grad`` of the reference's associative scan, with respect to the
+    """The port's RG-LRU (gates and the scan's Function, the plain backward
+    on the CPU) under autograd against ``jax.grad`` of the reference's
+    associative scan, with respect to the
     input and every parameter.  f32, within 1e-4 of each max-abs."""
     cfg = get_config("recurrentgemma-9b", reduced=True)
     rcfg = ref_config("recurrentgemma-9b", reduced=True)
@@ -487,6 +491,30 @@ def test_cli_losses_follow_the_reference_cli():
     assert out.getvalue().rstrip().endswith("done")
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_cli_losses_follow_the_reference_cli_for_the_scan_families(arch):
+    """The ssm and hybrid families through ``launch/train.py --device cpu
+    --reduced`` (the scans' Functions with their plain backward formulas)
+    against the reference's ``train.py`` from the same weights, 4 steps of
+    2 x 64 (mamba2: two chunks of 32; recurrentgemma: twice its window of
+    32, banded attention): per-step losses within 2e-2 (bf16); the same
+    line printed."""
+    argv = ["--arch", arch, "--reduced", "--steps", "4", "--batch", "2",
+            "--seq", "64"]
+    want = _losses(_ref_cli(argv))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        hist = port_train.main([*argv, "--device", "cpu"],
+                               params=_ref_init(arch, 64))
+    assert [h["step"] for h in hist] == list(range(4)) == sorted(want)
+    got = _losses(out.getvalue())
+    np.testing.assert_allclose([got[s] for s in range(4)],
+                               [want[s] for s in range(4)], atol=CLI_LOSS_TOL)
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist)
+    assert out.getvalue().rstrip().endswith("done")
+
+
 def test_cli_device_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -630,14 +658,16 @@ def test_a_lost_optimizer_state_fails_the_state_check_not_the_losses(
 
 def test_scans_refuse_grad_on_a_device_before_launching():
     """Off the CPU (a meta tensor stands in for a card's here) the SSD and
-    RG-LRU dispatch checks grad first: with grad it raises
-    NotImplementedError naming the missing backward kernel and the ROADMAP
-    item; without grad the same call reaches the kernel's wrapper, which
-    refuses the non-CUDA tensor.  Nothing falls back to the plain version."""
+    RG-LRU scans under grad run their ``autograd.Function``, whose forward
+    reaches the kernel's wrapper, which refuses the non-CUDA tensor before
+    anything launches; without grad the same call reaches the wrapper too.
+    Nothing falls back to the plain version.  On the CPU the same call
+    under grad runs the Function over the plain versions: the outputs carry
+    its backward."""
     meta = torch.device("meta")
     a = torch.rand(1, 4, 8, device=meta, requires_grad=True)
     b = torch.rand(1, 4, 8, device=meta)
-    with pytest.raises(NotImplementedError, match="RG-LRU.*queue A"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         rglru_scan(a, b)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
         rglru_scan(a, b)
@@ -645,10 +675,17 @@ def test_scans_refuse_grad_on_a_device_before_launching():
     dt = torch.rand(1, 32, 2, device=meta)
     A = torch.rand(2, device=meta)
     Bm = torch.rand(1, 32, 16, device=meta)
-    with pytest.raises(NotImplementedError, match="SSD.*queue A"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ssd_scan(x, dt, A, Bm, Bm, chunk=32)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
         ssd_scan(x, dt, A, Bm, Bm, chunk=32)
+    h, _ = rglru_scan(torch.rand(1, 4, 8, requires_grad=True),
+                      torch.rand(1, 4, 8))
+    assert type(h.grad_fn).__name__ == "_RGLRUScanBackward"
+    y, _ = ssd_scan(torch.rand(1, 32, 2, 16, requires_grad=True),
+                    torch.rand(1, 32, 2), torch.rand(2),
+                    torch.rand(1, 32, 16), torch.rand(1, 32, 16), chunk=32)
+    assert y.grad_fn is not None
 
 
 def test_serving_builds_no_graph_even_from_trainable_params():
