@@ -8,9 +8,10 @@ Phases, each printing one JSON line:
 
 1. card:    the card's name and power limit as nvidia-smi reports them;
 2. build:   ``nvcc`` builds every CUDA kernel from ``src/repro_torch/kernels/csrc``,
-            one process per source, all at once; a second line gives
-            ptxas's registers and spill bytes of the flash backward's
-            tensor-core kernels, each of which must spill nothing;
+            one process per source, all at once; two more lines give
+            ptxas's registers and spill bytes of the flash backward's and
+            the SSD backward's tensor-core kernels, each of which must spill
+            nothing;
 3. kernels: the state-plane kernels against their plain PyTorch versions on
             the card, at the shapes the main path gives them plus ragged,
             u8/u32, f32/bf16 and NaN/inf cases; bit-identical results (scales
@@ -71,11 +72,14 @@ Phases, each printing one JSON line:
             values at mamba2-370m's training shape (4 x 2048, 32 heads, P
             64, N 128, 8 chunks of 256), f32 and bf16, and at one chunk, Q
             100, H 3, 10 and 12 (not multiples of the 8-head block), P 16
-            and 128, N 16, 48 and 64: f32 within 1e-4 of each output's
-            max-abs, bf16 within 2**-7 of it (about two bf16 ulps of the
-            largest element; dcums, f32, within 1e-4); two calls give the
-            same bits; both timed (CUDA events and device time) beside the
-            plain version and the bound;
+            and 128, N 16, 48 and 64, and in bf16 (the tensor-core route)
+            at Q 32, 64, 128 and 192, H 1 and 17, S of one ragged chunk and
+            N 112: f32 within 1e-4 of each output's max-abs, bf16 within
+            2**-7 of it (about two bf16 ulps of the largest element; dcums,
+            f32, within 1e-4); two calls give the same bits; both routes
+            timed (CUDA events and each launch's device time) beside the
+            plain version and the bound, with the bf16 route's shared
+            memory a block and resident blocks an SM;
 5. session: the state-migration path through
             ``repro_torch.launch.notebook.run_notebook`` on the card, two
             sessions under the paper's single-cell policy (the first runs
@@ -365,6 +369,7 @@ def phase_card() -> None:
 def phase_build() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import TC_BWD_HEAD_DIMS
+    from repro_torch.kernels.ssd_scan.kernel import HEAD_DIMS as SSD_HEAD_DIMS
     t0 = time.perf_counter()
     reports = _build.build_all()
     seconds = time.perf_counter() - t0
@@ -373,15 +378,27 @@ def phase_build() -> None:
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "entry function" in ln]
              for n, log in reports.items()}
-    if "flash_attention_bwd" in reports:
-        tc = {name: use for name, use in ptxas_usage(
-            reports["flash_attention_bwd"]).items() if "_tc<" in name}
+    # the tensor-core kernels' registers and spills, each of which must
+    # spill nothing: flash backward (an instance per head dim and walk) and
+    # SSD backward (products and tiles per head dim, the state pass)
+    checks = {"flash_attention_bwd": 2 * len(TC_BWD_HEAD_DIMS),
+              "ssd_scan_bwd": 2 * len(SSD_HEAD_DIMS) + 1}
+    for lib, want in checks.items():
+        if lib not in reports:
+            continue
+        tc = {}
+        for name, use in ptxas_usage(reports[lib]).items():
+            if "ssd_bwd_pass_tc" in name:
+                tc["ssd_bwd_pass_tc"] = use
+            elif "_tc<" in name:
+                tc[name] = use
         spilled = {n: u for n, u in tc.items()
                    if u.get("spill_stores", 1) or u.get("spill_loads", 1)}
-        emit({"phase": "build", "flash_attention_bwd_tensor_cores": tc})
-        if len(tc) != 2 * len(TC_BWD_HEAD_DIMS) or spilled:
-            raise AssertionError(f"flash_attention_bwd tensor-core kernels: "
-                                 f"{len(tc)} instances, spilled {spilled}")
+        emit({"phase": "build", f"{lib}_tensor_cores": tc,
+              **({f"ptxas_{lib}": ptxas[lib]} if spilled else {})})
+        if len(tc) != want or spilled:
+            raise AssertionError(f"{lib} tensor-core kernels: {len(tc)} "
+                                 f"instances, spilled {spilled}")
     emit({"phase": "build", "seconds": seconds, "built": sorted(reports),
           "ptxas": ptxas})
 
@@ -1176,21 +1193,40 @@ def phase_flash_bwd() -> list[dict]:
     del f32_in
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
                        max(2, REPS // 10))
-    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    try:
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                             enable_gqa=True)
-        library_call = ("autograd.grad of scaled_dot_product_attention"
-                        "(is_causal, enable_gqa)")
-    except TypeError:           # a torch without enable_gqa (here H == KV)
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-        library_call = "autograd.grad of scaled_dot_product_attention(is_causal)"
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        out, (qs, ks, vs), do, retain_graph=True), REPS)
-    del out, qs, ks, vs
+    library_call = ("autograd.grad of scaled_dot_product_attention"
+                    "(is_causal, enable_gqa)")
+    library_ms = sdpa_bwd_ms(q, k, v, do, REPS)
+    library_ms_f32 = sdpa_bwd_ms(q.float(), k.float(), v.float(), do.float(),
+                                 max(2, REPS // 4))
     flops = int(2.5 * fwd_flops)
     nbytes = 2 * (4 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
     b, by = bound(nbytes, flops, BF16_OPS_PER_S)
+
+    # the CUDA-core route in bf16 at recurrentgemma-9b's training shape (hd
+    # 256, MQA), the train phase's launches of it, beside SDPA's backward
+    rgc = get_config("recurrentgemma-9b")
+    rB, rH, rKV, rS, rhd = (RG_TRAIN_BATCH, rgc.num_heads, rgc.num_kv_heads,
+                            RG_TRAIN_SEQ, rgc.resolved_head_dim)
+    if fk.bwd_route(bf16, rhd) != "cuda_cores":
+        raise AssertionError(f"flash_attention_bwd at hd {rhd}: route "
+                             f"{fk.bwd_route(bf16, rhd)}")
+    rq, rdo = randn((rB, rH, rS, rhd), bf16), randn((rB, rH, rS, rhd), bf16)
+    rk, rv = randn((rB, rKV, rS, rhd), bf16), randn((rB, rKV, rS, rhd), bf16)
+    ro, rlse = fk.flash_attention_kernel(rq, rk, rv, with_lse=True)
+    r_args = (rq, rk, rv, ro, rlse, rdo)
+    r_flops = int(2.5 * 4 * rB * rH * (rS * (rS + 1) // 2) * rhd)
+    r_bytes = (2 * (4 * rB * rH * rS * rhd + 4 * rB * rKV * rS * rhd)
+               + 4 * rB * rH * rS)
+    rb, rby = bound(r_bytes, r_flops, BF16_OPS_PER_S)
+    cuda_cores_hd256 = {
+        "timed_shape": [rB, rH, rKV, rS, rhd, "bfloat16", "causal"],
+        "route": "cuda_cores", "ms": time_ms(lambda: kern(*r_args), REPS // 4),
+        "device_kernels_ms": device_kernels_ms(lambda: kern(*r_args), 4),
+        "plain_ms": time_ms(lambda: attention_bwd_ref(*r_args), 2),
+        "bound_ms": rb, "bound_by": rby, "flops": r_flops, "bytes": r_bytes,
+        "library_ms": sdpa_bwd_ms(rq, rk, rv, rdo, REPS // 4),
+        "library_call": library_call}
+    del r_args, rq, rk, rv, ro, rlse, rdo
     torch.cuda.synchronize()
     emit({"phase": "lm_kernels_bwd", "card": card_line(),
           "routes": dict(fk.BWD_ROUTE_LAUNCHES), "checked": checked,
@@ -1220,9 +1256,25 @@ def phase_flash_bwd() -> list[dict]:
                               f"{sum(per_kernel.values())}"},
              "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
              "library_ms": library_ms, "library_call": library_call,
+             # SDPA's backward on the f32 inputs (TF32 off), beside ms_f32
+             "library_ms_f32": library_ms_f32,
              "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
              "forward_with_lse": forward, "flops": flops, "bytes": nbytes,
+             "cuda_cores_hd256": cuda_cores_hd256,
              "checked_shapes": checked}]
+
+
+def sdpa_bwd_ms(q, k, v, do, reps: int) -> float:
+    """CUDA-event time of ``autograd.grad`` of causal SDPA with
+    ``enable_gqa`` at these inputs: the library yardstick of the flash
+    backward, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         enable_gqa=True)
+    return time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                               retain_graph=True), reps)
 
 
 # the scan backwards against their plain backward formulas in f32 from the
@@ -1231,6 +1283,10 @@ def phase_flash_bwd() -> list[dict]:
 # and dCm rounded once to bf16) within 2**-7 of each output's max-abs, about
 # two bf16 ulps of its largest element, dcums (f32) within 1e-4
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# the bf16 route's tile launch at mamba2-370m's training shape: at most 113
+# KiB of shared memory a block, so that two blocks share an SM (228 KiB, 1
+# KiB reserved a block)
+SSD_BWD_TILE_SMEM = 113 * 1024
 
 
 def ssd_bwd_work(B, S, H, P, N, Q, dtype_bytes, with_dstate):
@@ -1261,11 +1317,14 @@ def phase_scan_bwd() -> list[dict]:
     chunks), the final state's gradient None (the training path's) and
     given, and at one chunk, Q 100 (ragged against the 64-row tiles), H 3,
     10 and 12 (not multiples of the 8-head block), P 16 and 128, N 16, 48
-    and 64, B 1, within ``SSD_BWD_TOL``.  Two calls give the same bits.
-    Each is timed at its training shape (CUDA events, and each launch's
-    device time from torch.profiler) beside its plain version and its
-    bound; the SSD backward on its bf16 inputs (the training path's) and
-    on f32 inputs.  Returns their rows of the ``kernels`` line."""
+    and 64, B 1, and in bf16 at the tensor-core route's edges (Q 32, 64,
+    128 and 192, H 1 and 17, S of one ragged chunk, N 112), within
+    ``SSD_BWD_TOL``.  Two calls give the same bits.  Each is timed at its
+    training shape (CUDA events, and each launch's device time from
+    torch.profiler) beside its plain version and its bound; the SSD
+    backward on its bf16 inputs (the training path's) and on f32 inputs,
+    with the bf16 route's shared memory a block and resident blocks an SM.
+    Returns their rows of the ``kernels`` line."""
     import torch
     import torch.nn.functional as F
 
@@ -1344,6 +1403,16 @@ def phase_scan_bwd() -> list[dict]:
              ((2, 128, 9, 16, 16, 64), bf16, False),
              ((2, 64, 8, 16, 16, 32), f32, True),
              ((1, 256, 2, 32, 64, 64), bf16, True)]
+    # the tensor-core route's edges: Q against its 64-row tiles and 32-row
+    # halves (32, 64, 128, 192), one head and a last head block of one (H 1,
+    # 17), S of exactly one chunk (ragged against the tiles), N 112 (a state
+    # step of 16 columns)
+    cases += [((1, 256, 4, 64, 128, 32), bf16, True),
+              ((1, 256, 3, 64, 128, 64), bf16, False),
+              ((2, 512, 5, 64, 128, 128), bf16, True),
+              ((1, 384, 1, 64, 128, 192), bf16, False),
+              ((2, 512, 17, 64, 128, 256), bf16, True),
+              ((1, 100, 6, 32, 112, 100), bf16, True)]
     errs = {"float32": 0.0, "bfloat16": 0.0}     # of each output's max-abs
     abs_errs = {"float32": 0.0, "bfloat16": 0.0}
     checked = []
@@ -1377,7 +1446,11 @@ def phase_scan_bwd() -> list[dict]:
     ins32 = [t if t is None or t.dtype == f32 else t.float() for t in ins]
     ssd_ms_f32 = time_ms(lambda: sk.ssd_scan_bwd_kernel(*ins32),
                          max(2, REPS // 4))
+    ssd_dev_f32 = device_kernels_ms(lambda: sk.ssd_scan_bwd_kernel(*ins32), 4)
     del ins, ins32
+    occupancy = sk.ssd_scan_bwd_occupancy(P, N, Q)
+    if occupancy["tiles"]["smem_bytes"] > SSD_BWD_TILE_SMEM:
+        raise AssertionError(f"ssd_scan_bwd tile launch: {occupancy}")
     flops, nbytes = ssd_bwd_work(B, S, H, P, N, Q, 2, False)
     ssd_bound, ssd_by = bound(nbytes, flops, BF16_OPS_PER_S)
     torch.cuda.synchronize()
@@ -1411,6 +1484,10 @@ def phase_scan_bwd() -> list[dict]:
              "max_abs_err_bf16": abs_errs["bfloat16"],
              "err_of_max_abs": errs, "ms": ssd_ms,
              "ms_f32": ssd_ms_f32, "device_kernels_ms": ssd_dev,
+             "device_kernels_ms_f32": ssd_dev_f32,
+             # the bf16 route's launches: shared memory a block, resident
+             # blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+             "occupancy": occupancy,
              "plain_ms": ssd_plain, "bound_ms": ssd_bound,
              "bound_by": ssd_by, "library_ms": None, "flops": flops,
              "bytes": nbytes, "timed_shape": [*main_ssd, "bfloat16"],

@@ -71,6 +71,7 @@ SIGNATURES = {
     "ssd_scan_bwd": {
         "ssd_scan_bwd_f32": (_P,) * 13 + (_N,) * 6 + (_P,),
         "ssd_scan_bwd_bf16": (_P,) * 13 + (_N,) * 6 + (_P,),
+        "ssd_scan_bwd_bf16_occupancy": (_N, _N, _N, _P),
     },
     "rg_lru": {
         "rglru_scan_f32": (_P, _P, _P, _P, _N, _N, _N, _P),

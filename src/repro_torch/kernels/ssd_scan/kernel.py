@@ -10,6 +10,8 @@ run behind it).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -18,12 +20,16 @@ LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 # the backward's limits and layout, as csrc/ssd_scan_bwd.cu sets them: N up
-# to BWD_MAX_STATE, blocks of BWD_HEAD_BLOCK heads, BWD_TILE-row tiles, the
-# state passed in slices of BWD_PASS_ELEMS elements
+# to BWD_MAX_STATE (in bf16 a multiple of BWD_TC_STATE_STEP, the tensor
+# cores' depth), blocks of BWD_HEAD_BLOCK heads, BWD_TILE-row tiles, the
+# state passed in slices of BWD_PASS_ELEMS elements, each slice's share of
+# exp(cu_last)<dS, s> in BWD_PASS_PARTS parts (one a warp in bf16)
 BWD_MAX_STATE = 128
+BWD_TC_STATE_STEP = 16
 BWD_HEAD_BLOCK = 8
 BWD_TILE = 64
 BWD_PASS_ELEMS = 1024
+BWD_PASS_PARTS = {torch.float32: 1, torch.bfloat16: 4}
 _ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -82,8 +88,9 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     bf16), cums (B,H,nc,Q) f32, dstate (B,H,P,N) f32 or None (a zero
     gradient of the final state), all contiguous -> (dxdt, dBm, dCm in the
     inputs' dtype, dcums f32).  P in ``HEAD_DIMS``, N up to
-    ``BWD_MAX_STATE``; the kernel refuses sizes whose tiles need more shared
-    memory than a block may hold.  Deterministic (no atomics)."""
+    ``BWD_MAX_STATE``, in bf16 (the tensor-core route) a multiple of
+    ``BWD_TC_STATE_STEP``; the kernel refuses sizes whose tiles need more
+    shared memory than a block may hold.  Deterministic (no atomics)."""
     if xdt.dim() != 5 or Bm.dim() != 4:
         raise ValueError(f"xdt, Bm: expected 5-D and 4-D, got "
                          f"{tuple(xdt.shape)}, {tuple(Bm.shape)}")
@@ -94,6 +101,9 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     if N > BWD_MAX_STATE:
         raise ValueError(f"state size {N} above the backward's "
                          f"{BWD_MAX_STATE}")
+    if xdt.dtype == torch.bfloat16 and N % BWD_TC_STATE_STEP:
+        raise ValueError(f"state size {N}: the bf16 backward takes a "
+                         f"multiple of {BWD_TC_STATE_STEP}")
     _build.check_tensor(xdt, "xdt", tuple(_ENTRY), (B, H, nc, Q, P))
     _build.check_tensor(dy, "dy", (xdt.dtype,), (B, H, nc, Q, P))
     for name, t in (("Bm", Bm), ("Cm", Cm)):
@@ -111,11 +121,12 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         for t in (dxdt, dB, dC, dcums):
             t.zero_()
         return dxdt, dB, dC, dcums
-    # the workspaces: the chunk states and state gradients; dB and dC per
-    # block of heads; per chunk, each tile's sum of t and each slice's share
-    # of exp(cu_last)<dS, s>
+    # the workspaces: the chunk states and state gradients (in bf16, after
+    # the state passing, each 8 entries' 32 bytes hold them as bf16 hi + lo);
+    # dB and dC per block of heads; per chunk, each tile's sum of t and each
+    # slice's parts of exp(cu_last)<dS, s>
     tiles = -(-Q // BWD_TILE)
-    slices = -(-P * N // BWD_PASS_ELEMS)
+    slices = -(-P * N // BWD_PASS_ELEMS) * BWD_PASS_PARTS[xdt.dtype]
     nhb = -(-H // BWD_HEAD_BLOCK)
     f32, dev = torch.float32, xdt.device
     states = torch.empty((2, B, H, nc, P, N), dtype=f32, device=dev)
@@ -133,3 +144,15 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     _build.check(err, f"ssd_scan_bwd (P={P}, N={N}, Q={Q})")
     LAUNCHES["ssd_scan_bwd"] += 1
     return dxdt, dB, dC, dcums
+
+
+def ssd_scan_bwd_occupancy(P: int, N: int, Q: int) -> dict:
+    """The bf16 backward's three tensor-core launches at (P, N, Q) on the
+    current device: ``{launch: {"smem_bytes", "blocks_per_sm"}}``, the
+    dynamic shared memory a block and the resident blocks an SM."""
+    out = (ctypes.c_int * 6)()
+    lib = _build.load("ssd_scan_bwd")
+    err = lib.ssd_scan_bwd_bf16_occupancy(P, N, Q, ctypes.addressof(out))
+    _build.check(err, f"ssd_scan_bwd occupancy (P={P}, N={N}, Q={Q})")
+    return {name: {"smem_bytes": out[2 * i], "blocks_per_sm": out[2 * i + 1]}
+            for i, name in enumerate(("products", "pass", "tiles"))}
