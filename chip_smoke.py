@@ -57,14 +57,20 @@ Phases, each printing one JSON line:
             hd 160 and 256, whisper-tiny's unmasked S 1500, S under one
             tile, ragged S), and bf16 at the tensor-core route's tile edges
             (hd 64 and 128, S 31-33, 63-65, 127-129, GQA 4:1 and 8:1, B 1
-            and 2), f32 within 1e-4 and bf16 within 8e-3 (about two bf16
-            ulps; the plain formulas in f32 from the same bf16 values); each
-            case records the route it took (tensor cores for bf16 at hd
-            16-128, CUDA cores otherwise); two calls give the same bits;
-            timed, with each kernel's device time, on both routes beside the
-            plain formulas and the backward of scaled_dot_product_attention
-            (torch.autograd.grad), which the port never calls, and the
-            training forward (with the log-sum-exp) beside SDPA's forward;
+            and 2; the sweep route's at hd 160 and 256, S 1, 20, 31, 33,
+            63, 65, 127, 129, GQA 16:1 and 4:1), f32 within 1e-4 and bf16
+            within 8e-3 (about two bf16 ulps; the plain formulas in f32
+            from the same bf16 values); each case records the route it took
+            (tensor cores for bf16, CUDA cores for f32); two calls give the
+            same bits; timed, with each kernel's device time, on both routes
+            beside the plain formulas and the backward of
+            scaled_dot_product_attention (torch.autograd.grad), which the
+            port never calls, and the training forward (with the
+            log-sum-exp) beside SDPA's forward; the sweep route checked and
+            timed likewise at recurrentgemma-9b's training shape (2,16,1,
+            1024,256), at each head slice count of 1-16, and stablelm-12b's
+            heads (2,32,8,1024,160), with its launches' shared memory and
+            blocks an SM;
             rglru_scan_bwd bit for bit against its plain backward
             (``rglru_scan_bwd_ref``) at recurrentgemma-9b's training shape
             (2, 1024, 4096) and at S 1 and 17, W 100 and 130, B 1;
@@ -1025,6 +1031,11 @@ def phase_lm_kernels() -> list[dict]:
 
 
 TC_EDGES = (31, 32, 33, 63, 64, 65, 127, 128, 129)
+# the sweep route's (bf16 at hd 160 and 256): 64-key dK/dV blocks walking
+# 32-query tiles, 64-query dQ blocks walking 32-key tiles
+SWEEP_EDGES = (1, 20, 31, 33, 63, 65, 127, 129)
+# head slice counts timed at recurrentgemma-9b's training shape
+SWEEP_SLICES = (1, 2, 4, 8, 16)
 # the backward kernel's (atol, rtol): f32 against the plain formulas in f32;
 # bf16 about two bf16 ulps (2**-7 relative) around the outputs' rounding,
 # the plain formulas computing in f32 from the same bf16 values, output and
@@ -1055,6 +1066,9 @@ def phase_flash_bwd() -> list[dict]:
     backward of ``scaled_dot_product_attention`` (through
     ``torch.autograd.grad``; the port never calls it), and likewise the
     training forward (flash with its log-sum-exp) beside SDPA's forward.
+    At hd 256 and 160 (recurrentgemma-9b's and stablelm-12b's training
+    shapes, the sweep route) checks and times the kernel beside SDPA's
+    backward, at recurrentgemma's at every count of ``SWEEP_SLICES`` too.
     Returns its row of the ``kernels`` line."""
     import torch
     import torch.nn.functional as F
@@ -1104,6 +1118,13 @@ def phase_flash_bwd() -> list[dict]:
     cases += [((1 + S % 2, 8, 1 if S in (33, 64, 127) else 2, S, hd), bf16,
                S not in (33, 129))
               for hd in (64, 128) for S in TC_EDGES]
+    # the sweep route's tile edges: S 1, under one tile, one and two tiles
+    # each ragged by one either way; GQA 16:1 and 4:1 in turn; B 1 and 2;
+    # causal, and unmasked at 33 and 127
+    cases += [((1 + S % 2, 16, 1 if i % 2 == 0 else 4, S, hd), bf16,
+               S not in (33, 127))
+              for hd in fk.SWEEP_BWD_HEAD_DIMS
+              for i, S in enumerate(SWEEP_EDGES)]
     errs = {"float32": 0.0, "bfloat16": 0.0}
     lse_errs = {"float32": 0.0, "bfloat16": 0.0}
     o_errs = {"float32": 0.0, "bfloat16": 0.0}
@@ -1182,8 +1203,8 @@ def phase_flash_bwd() -> list[dict]:
                "library_call": "scaled_dot_product_attention(is_causal, "
                                "enable_gqa), no log-sum-exp"}
 
-    def kern(*t):
-        return fk.flash_attention_bwd_kernel(*t, causal=True)
+    def kern(*t, slices=None):
+        return fk.flash_attention_bwd_kernel(*t, causal=True, slices=slices)
 
     ms = time_ms(lambda: kern(q, k, v, o, lse, do), REPS)
     per_kernel = device_kernels_ms(lambda: kern(q, k, v, o, lse, do))
@@ -1202,31 +1223,68 @@ def phase_flash_bwd() -> list[dict]:
     nbytes = 2 * (4 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
     b, by = bound(nbytes, flops, BF16_OPS_PER_S)
 
-    # the CUDA-core route in bf16 at recurrentgemma-9b's training shape (hd
-    # 256, MQA), the train phase's launches of it, beside SDPA's backward
-    rgc = get_config("recurrentgemma-9b")
-    rB, rH, rKV, rS, rhd = (RG_TRAIN_BATCH, rgc.num_heads, rgc.num_kv_heads,
-                            RG_TRAIN_SEQ, rgc.resolved_head_dim)
-    if fk.bwd_route(bf16, rhd) != "cuda_cores":
-        raise AssertionError(f"flash_attention_bwd at hd {rhd}: route "
-                             f"{fk.bwd_route(bf16, rhd)}")
-    rq, rdo = randn((rB, rH, rS, rhd), bf16), randn((rB, rH, rS, rhd), bf16)
-    rk, rv = randn((rB, rKV, rS, rhd), bf16), randn((rB, rKV, rS, rhd), bf16)
-    ro, rlse = fk.flash_attention_kernel(rq, rk, rv, with_lse=True)
-    r_args = (rq, rk, rv, ro, rlse, rdo)
-    r_flops = int(2.5 * 4 * rB * rH * (rS * (rS + 1) // 2) * rhd)
-    r_bytes = (2 * (4 * rB * rH * rS * rhd + 4 * rB * rKV * rS * rhd)
-               + 4 * rB * rH * rS)
-    rb, rby = bound(r_bytes, r_flops, BF16_OPS_PER_S)
-    cuda_cores_hd256 = {
-        "timed_shape": [rB, rH, rKV, rS, rhd, "bfloat16", "causal"],
-        "route": "cuda_cores", "ms": time_ms(lambda: kern(*r_args), REPS // 4),
-        "device_kernels_ms": device_kernels_ms(lambda: kern(*r_args), 4),
-        "plain_ms": time_ms(lambda: attention_bwd_ref(*r_args), 2),
-        "bound_ms": rb, "bound_by": rby, "flops": r_flops, "bytes": r_bytes,
-        "library_ms": sdpa_bwd_ms(rq, rk, rv, rdo, REPS // 4),
-        "library_call": library_call}
-    del r_args, rq, rk, rv, ro, rlse, rdo
+    # the sweep route at recurrentgemma-9b's training shape (hd 256, MQA 16:1,
+    # the train phase's launches of it) at each slice count, and at
+    # stablelm-12b's heads (hd 160, GQA 32:8): checked against the plain
+    # formulas, timed beside them and SDPA's backward
+    def sweep_row(B, H, KV, S, hd, slice_counts):
+        if fk.bwd_route(bf16, hd) != "tensor_cores":
+            raise AssertionError(f"flash_attention_bwd at hd {hd}: route "
+                                 f"{fk.bwd_route(bf16, hd)}")
+        sq, sdo = randn((B, H, S, hd), bf16), randn((B, H, S, hd), bf16)
+        sk, sv = randn((B, KV, S, hd), bf16), randn((B, KV, S, hd), bf16)
+        so, slse = fk.flash_attention_kernel(sq, sk, sv, with_lse=True)
+        args = (sq, sk, sv, so, slse, sdo)
+        want = attention_bwd_ref(*args)
+        auto = fk.bwd_slices(bf16, B, H, KV, S, hd, torch.cuda.
+                             get_device_properties(dev).multi_processor_count)
+        atol, rtol = BWD_TOL["bfloat16"]
+        by_slices = {}
+        for n in sorted({auto, *slice_counts}):
+            got = fk.flash_attention_bwd_kernel(*args, slices=n)
+            err = 0.0
+            for what, a, w in zip(("dq", "dk", "dv"), got, want):
+                torch.testing.assert_close(
+                    a.float(), w.float(), atol=atol, rtol=rtol,
+                    msg=lambda m: f"{what} at slices {n}: {m}")
+                err = max(err, float((a.float() - w.float()).abs().max()))
+            again = fk.flash_attention_bwd_kernel(*args, slices=n)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd {B, H, KV, S, hd} "
+                                     f"slices {n}: two calls differ")
+            del got, again
+            errs["bfloat16"] = max(errs["bfloat16"], err)
+            checked.append([B, H, KV, S, hd, "bfloat16", "causal",
+                            "tensor_cores", err, f"slices {n}"])
+            by_slices[n] = {
+                "max_abs_err": err,
+                "ms": time_ms(lambda: kern(*args, slices=n), REPS),
+                "device_kernels_ms": device_kernels_ms(
+                    lambda: kern(*args, slices=n))}
+        del want
+        flops = int(2.5 * 4 * B * H * (S * (S + 1) // 2) * hd)
+        nbytes = 2 * (4 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
+        bnd, bnd_by = bound(nbytes, flops, BF16_OPS_PER_S)
+        out = {"timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
+               "route": "tensor_cores", "slices": auto,
+               "ms": by_slices[auto]["ms"],
+               "device_kernels_ms": by_slices[auto]["device_kernels_ms"],
+               "plain_ms": time_ms(lambda: attention_bwd_ref(*args), 2),
+               "bound_ms": bnd, "bound_by": bnd_by, "flops": flops,
+               "bytes": nbytes,
+               "library_ms": sdpa_bwd_ms(sq, sk, sv, sdo, REPS),
+               "library_call": library_call,
+               "occupancy": fk.flash_attention_bwd_occupancy(hd)}
+        if len(by_slices) > 1:
+            out["by_slices"] = by_slices
+        return out
+
+    rgc, slc = get_config("recurrentgemma-9b"), get_config("stablelm-12b")
+    sweeps = {
+        "hd256": sweep_row(RG_TRAIN_BATCH, rgc.num_heads, rgc.num_kv_heads,
+                           RG_TRAIN_SEQ, rgc.resolved_head_dim, SWEEP_SLICES),
+        "hd160": sweep_row(2, slc.num_heads, slc.num_kv_heads, TRAIN_SEQ,
+                           slc.resolved_head_dim, ())}
     torch.cuda.synchronize()
     emit({"phase": "lm_kernels_bwd", "card": card_line(),
           "routes": dict(fk.BWD_ROUTE_LAUNCHES), "checked": checked,
@@ -1260,7 +1318,8 @@ def phase_flash_bwd() -> list[dict]:
              "library_ms_f32": library_ms_f32,
              "timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
              "forward_with_lse": forward, "flops": flops, "bytes": nbytes,
-             "cuda_cores_hd256": cuda_cores_hd256,
+             "tensor_cores_hd256": sweeps["hd256"],
+             "tensor_cores_hd160": sweeps["hd160"],
              "checked_shapes": checked}]
 
 
@@ -2911,10 +2970,11 @@ def phase_train(tmp: Path) -> dict:
        bf16 weights, batch 2 x seq 1024 (under the 2048 window: causal
        attention through flash at hd 256), 4 steps at lr 2e-5: every step
        launches rglru_scan and rglru_scan_bwd 4 times, flash_attention and
-       flash_attention_bwd twice;
+       flash_attention_bwd twice, both backwards on the tensor cores;
     legs 3 and 4 check finite and falling losses, print seconds per step,
     tokens per second, the peak device memory, and the device time by
-    kernel and idle share of one more (traced) step.
+    kernel (the flash backward's summed) and idle share of one more
+    (traced) step.
     Returns the kernels' launches on the training path."""
     import contextlib
     import dataclasses
@@ -3114,7 +3174,8 @@ def phase_train(tmp: Path) -> dict:
     def scan_leg(arch, cfg, batch, seq, run):
         """Runs ``run()`` (-> per-step history) with the counts per step,
         the peak memory and one traced step after it; checks the launches
-        per step, finite and falling losses; emits the leg's line."""
+        per step (every flash backward on the tensor cores), finite and
+        falling losses; emits the leg's line."""
         per_step.clear()
         per_step_routes.clear()
         split.clear()
@@ -3135,6 +3196,11 @@ def phase_train(tmp: Path) -> dict:
         if len(hist) != TRAIN_STEPS or per_step != [want] * TRAIN_STEPS:
             raise AssertionError(f"{arch}: launches per step {per_step}, "
                                  f"expected {want} x {TRAIN_STEPS}")
+        want_routes = {"tensor_cores": want["flash_attention_bwd"],
+                       "cuda_cores": 0}
+        if per_step_routes != [want_routes] * TRAIN_STEPS:
+            raise AssertionError(f"{arch}: backward routes per step "
+                                 f"{per_step_routes}, expected {want_routes}")
         losses = [h["loss"] for h in hist]
         if not all(finite(h["loss"]) and finite(h["grad_norm"])
                    for h in hist) or not losses[-1] < losses[0]:
@@ -3156,11 +3222,15 @@ def phase_train(tmp: Path) -> dict:
               "steady_tokens_per_s": batch * seq / steady,
               "peak_memory_bytes": peak, "allocated_at_start": at_start,
               "wall_seconds_with_init": wall, "launches_per_step": want,
+              "bwd_routes_per_step": want_routes,
               "traced_step_device": {
                   "ms": busy,
                   "idle_share_of_steady_step":
                       1 - busy / 1e3 / steady if busy else None,
                   "scan_bwd_ms": scan_bwd,
+                  "flash_attention_bwd_ms": sum(
+                      t for k, t in traced.items()
+                      if k.startswith("attn_bwd_")),
                   "top_kernels_ms": dict(sorted(traced.items(),
                                                 key=lambda kv: -kv[1])[:12])},
               "cli": text.splitlines()})

@@ -59,10 +59,9 @@ SIGNATURES = {
         "flash_attention_bf16": (_P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _I, _P),
     },
     "flash_attention_bwd": {
-        "flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _N, _N, _N, _N, _N, _I, _P),
-        "flash_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _N, _N, _N, _N, _N, _I, _P),
+        "flash_attention_bwd_f32": (_P,) * 11 + (_N,) * 6 + (_I, _P),
+        "flash_attention_bwd_bf16": (_P,) * 11 + (_N,) * 6 + (_I, _P),
+        "flash_attention_bwd_bf16_occupancy": (_N, _P),
     },
     "ssd_scan": {
         "ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),

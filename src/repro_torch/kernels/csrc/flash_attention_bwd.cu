@@ -19,51 +19,71 @@
 // written once by one thread, so two calls give the same bits):
 //
 // 1. `attn_bwd_dot`: D = rowsum(dO o O) in f32, one warp a row.
-// 2. dK/dV: one block per (key tile, kv head, batch).  K and V of the tile stay in shared memory;
-//    the block walks the group's query heads and, for each, the query tiles that can see the
-//    tile (from the diagonal on, when causal), recomputing S^T and dP^T for the (key, query) tile
-//    pair, P^T and dS^T from them, and accumulating dK and dV in f32 registers.
+// 2. dK/dV: blocks per key tile (and kv head, batch).  K and V of the tile stay in shared
+//    memory; the block walks query heads and, for each, the query tiles that can see the tile
+//    (from the diagonal on, when causal), recomputing S^T and dP^T for the (key, query) tile
+//    pair, P^T and dS^T from them, and accumulating dK and dV in f32 registers.  (At bf16 hd
+//    160 and 256 a fourth launch sums the head slices' partials; below.)
 // 3. dQ: one block per (query tile, head, batch), walking the key tiles up to the diagonal and
 //    accumulating dQ in f32 registers.
 // The dK/dV walk re-forms S and dP that the dQ walk forms too: seven tile products where a fused
 // backward (dQ summed by atomics) does five; that is the price of the same bits on every call.
 //
-// Two routes, chosen by dtype and head dim in `flash_attention_bwd_bf16` (kernel.py's
+// Two routes, chosen by dtype in `flash_attention_bwd_bf16` / `_f32` (kernel.py's
 // TC_BWD_HEAD_DIMS and bwd_route mirror the choice):
 //
-// bf16 at hd 16, 32, 64 and 128 (the training path): tensor cores, `attn_bwd_dkdv_tc` and
-// `attn_bwd_dq_tc`.  128-thread blocks of 4 warps, each warp 16 rows (keys in dK/dV, queries in
-// dQ); every product is mma.sync m16n8k16 on bf16 fragments with f32 accumulation, through
-// tc_sm90.cuh.  Tiles stay bf16 in shared memory with rows padded by 16 bytes (conflict-free
-// ldmatrix), and the walked tiles (Q, dO and their LSE, D rows in dK/dV; K, V in dQ) arrive by
-// cp.async in a two-stage ring: tile i+1 is in flight while tile i is used.  dK/dV forms
-// S^T = K Q^T and dP^T = V dO^T (Q and dO the B operands, stored [query][d], read by ldmatrix),
-// then P^T and dS^T in registers (LSE and D are per query, so they index the C fragment's
-// column), and feeds them straight from the score registers as A fragments into dV += P^T dO and
-// dK += dS^T Q (dO and Q read by ldmatrix.trans), with the forward's pairing of C tiles into A
-// (flash_attention.cu, P.V); P and dS never touch shared memory.  dQ holds Q and dO as A
-// fragments in registers, forms S = Q K^T and dP = dO V^T, dS in registers, and dQ += dS K (K by
-// ldmatrix.trans).  P and dS are split into bf16 hi + lo (tc::split_bf16) and each half
+// bf16 at every head dim (the training path): tensor cores.  128-thread blocks of 4 warps, each
+// warp 16 rows (keys in dK/dV, queries in dQ); every product is mma.sync m16n8k16 on bf16
+// fragments with f32 accumulation, through tc_sm90.cuh.  Tiles stay bf16 in shared memory with
+// rows padded by 16 bytes (conflict-free ldmatrix), and the walked tiles (Q, dO and their LSE,
+// D rows in dK/dV; K, V in dQ) arrive by cp.async in a two-stage ring: tile i+1 is in flight
+// while tile i is used.  P and dS are split into bf16 hi + lo (tc::split_bf16) and each half
 // multiplies the exact bf16 operand: one bf16 rounding of P and dS alone lands up to 2x outside
 // the bf16 tolerance against the plain formulas in f32 (GQA sums many heads' roundings into one
 // dK/dV row; tests/test_torch_flash_attention.py emulates both), hi + lo keeps them to about
-// 2^-16, at three more products a tile pair (ten in all).  P is 2^(S scale log2 e - LSE log2 e)
-// by ex2.approx; masked entries are set to exactly 0.  Key tiles are 64 rows; query tiles in
-// the dK/dV walk are 64 rows (32 at hd 128) and key tiles in the dQ walk 64 (32 at hd 128), so
-// that the f32 accumulators (16 rows x hd, two of them in dK/dV) and the score tiles fit the
-// registers without spilling; at hd <= 64 the warp's K and V rows stay in registers as A
-// fragments for the whole walk.  The grids run the heaviest tiles first: key tiles nearest 0
-// for dK/dV, query tiles nearest S for dQ, as the forward orders its grid.
+// 2^-16, at three more products a tile pair.  P is 2^(S scale log2 e - LSE log2 e) by
+// ex2.approx; masked entries are set to exactly 0.  The grids run the heaviest tiles first: key
+// tiles nearest 0 for dK/dV, query tiles nearest S for dQ, as the forward orders its grid.
 //
-// f32 (the route that matches the reference closely: `train_agree`, the f32 checks) and bf16 at
-// hd 160 and 256: CUDA cores, `attn_bwd_dkdv` and `attn_bwd_dq`, 256-thread blocks.  At hd 160
-// and 256 the tensor-core dK/dV accumulators (16 rows x hd x 2 in f32, 160-256 registers a
-// thread) do not fit a warp's registers; those head dims serve (stablelm-12b, recurrentgemma)
-// but no config trains them on the card, so they keep this first design.  Tiles are 64 keys x
-// 64 queries (32 x 32 at hd 256, to stay within 227 KB of shared memory), f32 in shared memory
+// - hd 16-128, `attn_bwd_dkdv_tc`: one block per (64-key tile, kv head, batch) walks the
+//   group's query heads and, for each, the query tiles that see the key tile.  It forms
+//   S^T = K Q^T and dP^T = V dO^T (Q and dO the B operands, stored [query][d], read by
+//   ldmatrix), then P^T and dS^T in registers (LSE and D are per query, so they index the C
+//   fragment's column), and feeds them straight from the score registers as A fragments into
+//   dV += P^T dO and dK += dS^T Q (dO and Q read by ldmatrix.trans), with the forward's pairing
+//   of C tiles into A (flash_attention.cu, P.V); P and dS never touch shared memory.  Query
+//   tiles are 64 rows (32 at hd 128) so that the two f32 accumulators (16 rows x hd each) and
+//   the score tiles fit the registers; at hd <= 64 the warp's K and V rows stay in registers as
+//   A fragments for the whole walk.  Ten tile products a (key, query) tile pair with dQ's.
+// - hd 160 and 256, `attn_bwd_dkdv_sweep_tc`: the two accumulators would take hd registers a
+//   thread (256 at hd 256), so dV and dK are formed in separate sweeps, each by its own block
+//   with one accumulator (hd / 2 registers): the dV sweep forms S^T and P^T, dV += P^T dO; the
+//   dK sweep forms S^T and dP^T again, dS^T, dK += dS^T Q (eleven tile products a pair with
+//   dQ's).  K and V stay in shared memory and are read by ldmatrix at each step; query tiles
+//   are 32 rows, and at hd 256 the walk's ring has one stage (below).  MQA and wide GQA groups
+//   give too few (key tile, kv head, batch) blocks to fill 132 SMs (recurrentgemma-9b's
+//   training shape: 32), so the group's query heads are split into `slices` (kernel.py's
+//   bwd_slices: the fewest that give a sweep at least one block an SM); each block of a slice
+//   writes its f32 partial to a workspace and `attn_bwd_dkdv_finish` sums the partials in
+//   slice order, scales dK and casts to bf16.
+//   With one slice the sweeps write the bf16 outputs themselves.  Shared memory a block:
+//   101,632 bytes at hd 256, 86,528 at hd 160: two blocks an SM.
+// - dQ, `attn_bwd_dq_tc`: one block per (64-query tile, head, batch), walking the key tiles
+//   up to the diagonal (64 rows, 32 at hd >= 128); it forms S = Q K^T and dP = dO V^T, dS in
+//   registers, and dQ += dS K (K by ldmatrix.trans).  At hd <= 128 the warp's Q and dO rows
+//   are held as A fragments; at hd 160 and 256 they stay in shared memory, read by ldmatrix at
+//   each step, so that the hd / 2-register accumulator and the score tiles fit.
+// - At hd 256 both walks load each tile into a one-stage ring after the previous step's closing
+//   barrier, so a block waits for its loads; two stages would take 135 KB a block and leave one
+//   4-warp block an SM, which ran 1.35x slower on an H100 than two blocks that overlap each
+//   other's loads.  The other head dims keep the two-stage ring.
+//
+// f32 (the route that matches the reference closely: `train_agree`, the f32 checks): CUDA
+// cores, `attn_bwd_dkdv` and `attn_bwd_dq`, 256-thread blocks.  Tiles are 64 keys x 64
+// queries (32 x 32 at hd 256, to stay within 227 KB of shared memory), f32 in shared memory
 // with rows padded by one float; each thread holds a 4x4 (2x2) micro-tile of the scores and 4
-// (2) rows x hd/16 columns of its accumulators.  bf16 inputs are widened to f32 on load; P is
-// recomputed with expf, never --use_fast_math.
+// (2) rows x hd/16 columns of its accumulators.  P is recomputed with expf, never
+// --use_fast_math.
 //
 // Outputs are written in the input dtype.  The kernels allocate nothing and never synchronise;
 // they run on the caller's stream.
@@ -90,23 +110,16 @@ struct Cfg {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // BT rows of one head starting at row r0, widened to f32; rows at or past S are zero.
-template <int HD, int BT, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0, int S) {
+template <int HD, int BT>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0,
+                                          int S) {
   constexpr int LD = HD + 1;
   for (int idx = threadIdx.x; idx < BT * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
     const int row = r0 + r;
-    dst[r * LD + d] = row < S ? to_f(src[static_cast<long long>(row) * HD + d]) : 0.f;
+    dst[r * LD + d] = row < S ? src[static_cast<long long>(row) * HD + d] : 0.f;
   }
 }
 
@@ -135,11 +148,12 @@ attn_bwd_dot(const T* __restrict__ o, const T* __restrict__ dout, float* __restr
 }
 
 // dK, dV for one (key tile, kv head, batch)
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv, int H,
+attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ dvec,
+              float* __restrict__ dk, float* __restrict__ dv, int H,
               int KV, int S, int causal, float scale) {
   using C = Cfg<HD>;
   constexpr int BT = C::BT, R = C::R, LD = C::LD, LDP = C::LDP;
@@ -257,18 +271,19 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
     for (int e = 0; e < DPT; ++e) {
       const long long at = kvoff + static_cast<long long>(kj) * HD + tx + 16 * e;
-      dk[at] = from_f<T>(dk_acc[a][e] * scale);
-      dv[at] = from_f<T>(dv_acc[a][e]);
+      dk[at] = dk_acc[a][e] * scale;
+      dv[at] = dv_acc[a][e];
     }
   }
 }
 
 // dQ for one (query tile, head, batch)
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ dvec, T* __restrict__ dq, int H, int KV, int S,
+attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ dvec,
+            float* __restrict__ dq, int H, int KV, int S,
             int causal, float scale) {
   using C = Cfg<HD>;
   constexpr int BT = C::BT, R = C::R, LD = C::LD, LDP = C::LDP;
@@ -373,7 +388,7 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     if (qi >= S) continue;
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
-      dq[qoff + static_cast<long long>(qi) * HD + tx + 16 * e] = from_f<T>(dq_acc[a][e] * scale);
+      dq[qoff + static_cast<long long>(qi) * HD + tx + 16 * e] = dq_acc[a][e] * scale;
   }
 }
 
@@ -393,15 +408,19 @@ struct TcCfg {
   static constexpr int DT = HD / 8;        // n8 tiles of an accumulator row block
   // dK/dV: 64 keys a block; the walked query tiles, BQ rows, in two stages
   static constexpr int BKEY = 64;
-  static constexpr int BQ = HD == 128 ? 32 : 64;
+  static constexpr int BQ = HD >= 128 ? 32 : 64;
   static constexpr bool KVREG = HD <= 64;  // the warp's K and V rows held as A fragments
-  // K, V; two stages of (Q, dO); two stages of the (LSE, D) rows
-  static constexpr size_t SMEM_DKDV =
-      sizeof(bf16) * (2 * BKEY * LD + 4 * BQ * LD) + sizeof(float) * 4 * BQ;
-  // dQ: 64 queries a block (Q and dO then held as A fragments); the walked key tiles, BK rows
+  // stages of the walked tiles' ring (dK/dV and dQ): one at hd 256, so that two blocks share
+  // an SM (two stages: 135,680 bytes a block, one block an SM, 1.35x the device time)
+  static constexpr int STAGES = HD == 256 ? 1 : 2;
+  // K, V; the stages of (Q, dO) and of the (LSE, D) rows
+  static constexpr size_t SMEM_DKDV = sizeof(bf16) * (2 * BKEY * LD + 2 * STAGES * BQ * LD) +
+                                      sizeof(float) * 2 * STAGES * BQ;
+  // dQ: 64 queries a block; the walked key tiles, BK rows
   static constexpr int BQQ = 64;
-  static constexpr int BK = HD == 128 ? 32 : 64;
-  static constexpr size_t SMEM_DQ = sizeof(bf16) * (2 * BQQ * LD + 4 * BK * LD);
+  static constexpr int BK = HD >= 128 ? 32 : 64;
+  static constexpr bool QREG = HD <= 128;  // the warp's Q and dO rows held as A fragments
+  static constexpr size_t SMEM_DQ = sizeof(bf16) * (2 * BQQ * LD + 2 * STAGES * BK * LD);
 };
 
 // the A fragments (hi and lo halves) of one k16 step from two C tiles of f32 values, as the
@@ -439,6 +458,7 @@ attn_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = C::LD, KS = C::KS, DT = C::DT, BKEY = C::BKEY, BQ = C::BQ;
   constexpr int NT = BQ / 8;               // n8 tiles of a score row block (queries)
   constexpr int QT = BQ * LD;              // elements of one Q or dO tile
+  static_assert(C::STAGES == 2, "the walk's ring has two stages");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* const Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* const Vs = Ks + BKEY * LD;
@@ -616,7 +636,7 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                bf16* __restrict__ dq, int B, int H, int KV, int S, int n_qt, int causal,
                float scale, float scale_log2) {
   using C = TcCfg<HD>;
-  constexpr int LD = C::LD, KS = C::KS, DT = C::DT, BQQ = C::BQQ, BK = C::BK;
+  constexpr int LD = C::LD, KS = C::KS, DT = C::DT, BQQ = C::BQQ, BK = C::BK, ST = C::STAGES;
   constexpr int NT = BK / 8;               // n8 tiles of a score row block (keys)
   constexpr int KT = BK * LD;              // elements of one K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -647,9 +667,11 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc::load_rows_async(Qs, LD, q + bh * head, q0, BQQ, S, HD);
   tc::load_rows_async(dOs, LD, dout + bh * head, q0, BQQ, S, HD);
   tc::cp_async_commit();
-  tc::load_rows_async(stages, LD, kb, 0, BK, S, HD);
-  tc::load_rows_async(stages + KT, LD, vb, 0, BK, S, HD);
-  tc::cp_async_commit();
+  if constexpr (ST == 2) {
+    tc::load_rows_async(stages, LD, kb, 0, BK, S, HD);
+    tc::load_rows_async(stages + KT, LD, vb, 0, BK, S, HD);
+    tc::cp_async_commit();
+  }
 
   // the rows' LSE (in base 2) and D; rows past S are never written
   const float* const lrow = lse + bh * S;
@@ -663,13 +685,15 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bt_off = tc::frag_bt_row(lane) * LD + tc::frag_bt_col(lane);
   const int tr_off = tc::frag_a_row(lane) * LD + tc::frag_a_col(lane);
 
-  uint32_t qf[KS][4], of[KS][4];
-  tc::cp_async_wait<1>();                  // Q and dO have landed
+  uint32_t qf[C::QREG ? KS : 1][4], of[C::QREG ? KS : 1][4];
+  tc::cp_async_wait<ST - 1>();             // Q and dO have landed
   __syncthreads();
+  if constexpr (C::QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    tc::ldsm_x4(qf[kk], Qs + a_off + kk * 16);
-    tc::ldsm_x4(of[kk], dOs + a_off + kk * 16);
+    for (int kk = 0; kk < KS; ++kk) {
+      tc::ldsm_x4(qf[kk], Qs + a_off + kk * 16);
+      tc::ldsm_x4(of[kk], dOs + a_off + kk * 16);
+    }
   }
 
   float dq_acc[DT][4];
@@ -677,15 +701,18 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int d = 0; d < DT; ++d) dq_acc[d][0] = dq_acc[d][1] = dq_acc[d][2] = dq_acc[d][3] = 0.f;
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {
-      bf16* const nx = stages + ((kt + 1) & 1) * 2 * KT;
-      tc::load_rows_async(nx, LD, kb, (kt + 1) * BK, BK, S, HD);
-      tc::load_rows_async(nx + KT, LD, vb, (kt + 1) * BK, BK, S, HD);
+    // two stages: tile kt + 1 in flight while kt is used; one: tile kt, into the stage the
+    // last step's closing barrier freed
+    const int ld_kt = kt + ST - 1;
+    if (ld_kt < n_kt) {
+      bf16* const nx = stages + (ld_kt % ST) * 2 * KT;
+      tc::load_rows_async(nx, LD, kb, ld_kt * BK, BK, S, HD);
+      tc::load_rows_async(nx + KT, LD, vb, ld_kt * BK, BK, S, HD);
     }
     tc::cp_async_commit();
-    tc::cp_async_wait<1>();                // key tile kt has landed
+    tc::cp_async_wait<ST - 1>();           // key tile kt has landed
     __syncthreads();
-    const bf16* const Ks = stages + (kt & 1) * 2 * KT;
+    const bf16* const Ks = stages + (kt % ST) * 2 * KT;
     const bf16* const Vs = Ks + KT;
     const int k0 = kt * BK;
 
@@ -698,15 +725,26 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[j][e] = dpm[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
+        uint32_t aq[4], ao[4];
+        if constexpr (C::QREG) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            aq[r] = qf[kk][r];
+            ao[r] = of[kk][r];
+          }
+        } else {
+          tc::ldsm_x4(aq, Qs + a_off + kk * 16);
+          tc::ldsm_x4(ao, dOs + a_off + kk * 16);
+        }
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t bb[4];
           tc::ldsm_x4(bb, Ks + bt_off + np * 16 * LD + kk * 16);
-          tc::mma_bf16(s[2 * np], qf[kk], bb[0], bb[1]);
-          tc::mma_bf16(s[2 * np + 1], qf[kk], bb[2], bb[3]);
+          tc::mma_bf16(s[2 * np], aq, bb[0], bb[1]);
+          tc::mma_bf16(s[2 * np + 1], aq, bb[2], bb[3]);
           tc::ldsm_x4(bb, Vs + bt_off + np * 16 * LD + kk * 16);
-          tc::mma_bf16(dpm[2 * np], of[kk], bb[0], bb[1]);
-          tc::mma_bf16(dpm[2 * np + 1], of[kk], bb[2], bb[3]);
+          tc::mma_bf16(dpm[2 * np], ao, bb[0], bb[1]);
+          tc::mma_bf16(dpm[2 * np + 1], ao, bb[2], bb[3]);
         }
       }
 
@@ -753,6 +791,247 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------------------------------------------
+// bf16 route at hd 160 and 256: dV and dK in separate sweeps, over head slices
+// ------------------------------------------------------------------------------------------
+
+// One sweep of a (64-key tile, kv head, head slice, batch) block: the slice's query heads and,
+// for each, the query tiles that see the key tile.  DK false: dV += P^T dO; DK true:
+// dK += dS^T Q.  The warp's 16 keys x hd accumulate in f32 and go out as the bf16 output
+// (`part` null: one slice, dK scaled) or as the slice's f32 partial into `part`.
+template <int HD, bool DK>
+__device__ __forceinline__ void dkdv_sweep(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
+    bf16* __restrict__ out, float* __restrict__ part, int b, int H, int KV, int S, int kvh,
+    int sl, int slices, int k0, int causal, float scale, float scale_log2) {
+  using C = TcCfg<HD>;
+  constexpr int LD = C::LD, KS = C::KS, DT = C::DT, BKEY = C::BKEY, BQ = C::BQ;
+  constexpr int ST = C::STAGES;
+  constexpr int NT = BQ / 8;               // n8 tiles of a score row block (queries)
+  constexpr int QT = BQ * LD;              // elements of one Q or dO tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const Vs = Ks + BKEY * LD;         // the dK sweep's
+  bf16* const stages = Vs + BKEY * LD;     // [stage][Q, dO]
+  float* const rows = reinterpret_cast<float*>(stages + 2 * ST * QT);   // [stage][LSE, D]
+
+  const int GS = H / KV / slices;          // query heads a slice
+  const long long head = static_cast<long long>(S) * HD;
+  const long long kvoff = (static_cast<long long>(b) * KV + kvh) * head;
+  const long long bh0 = static_cast<long long>(b) * H + kvh * (H / KV) + sl * GS;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + warp * 16;          // the warp's first key
+
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int per_head = n_qt - qt0;         // >= 1: k0 < S
+  const int n_it = GS * per_head;
+
+  // Q, dO, LSE and D of walk step `it` into stage it % ST (rows past S zero-filled)
+  auto issue = [&](int it) {
+    const long long bh = bh0 + it / per_head;
+    const int q0 = (qt0 + it % per_head) * BQ;
+    bf16* const dst = stages + (it % ST) * 2 * QT;
+    tc::load_rows_async(dst, LD, q + bh * head, q0, BQ, S, HD);
+    tc::load_rows_async(dst + QT, LD, dout + bh * head, q0, BQ, S, HD);
+    float* const r = rows + (it % ST) * 2 * BQ;
+    for (int i = threadIdx.x; i < 2 * BQ; i += kTcThreads) {
+      const int qi = q0 + (i < BQ ? i : i - BQ);
+      const bool ok = qi < S;
+      tc::cp_async4(r + i, (i < BQ ? lse : dvec) + bh * S + (ok ? qi : 0), ok);
+    }
+  };
+
+  tc::load_rows_async(Ks, LD, k + kvoff, k0, BKEY, S, HD);
+  if constexpr (DK) tc::load_rows_async(Vs, LD, v + kvoff, k0, BKEY, S, HD);
+  tc::cp_async_commit();
+  if constexpr (ST == 2) {
+    issue(0);
+    tc::cp_async_commit();
+  }
+
+  const int a_off = (warp * 16 + tc::frag_a_row(lane)) * LD + tc::frag_a_col(lane);
+  const int bt_off = tc::frag_bt_row(lane) * LD + tc::frag_bt_col(lane);
+  const int tr_off = tc::frag_a_row(lane) * LD + tc::frag_a_col(lane);
+
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    // two stages: step it + 1 in flight while it is used; one: step it, into the stage the
+    // last step's closing barrier freed
+    if (it + ST - 1 < n_it) issue(it + ST - 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<ST - 1>();           // K (and V) and walk step it have landed
+    __syncthreads();
+    const bf16* const Qs = stages + (it % ST) * 2 * QT;
+    const bf16* const dOs = Qs + QT;
+    const float* const Ls = rows + (it % ST) * 2 * BQ;
+    const float* const Ds = Ls + BQ;
+    const int q0 = (qt0 + it % per_head) * BQ;
+
+    if (!causal || q0 + BQ - 1 >= kw0) {   // else every query of the tile precedes these keys
+      // S^T = K Q^T (and dP^T = V dO^T) for the warp's 16 keys x BQ queries, K and V read by
+      // ldmatrix at each step
+      float s[NT][4], dpt[DK ? NT : 1][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      if constexpr (DK) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dpt[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ak[4];
+        tc::ldsm_x4(ak, Ks + a_off + kk * 16);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, Qs + bt_off + np * 16 * LD + kk * 16);
+          tc::mma_bf16(s[2 * np], ak, bb[0], bb[1]);
+          tc::mma_bf16(s[2 * np + 1], ak, bb[2], bb[3]);
+        }
+        if constexpr (DK) {
+          uint32_t av[4];
+          tc::ldsm_x4(av, Vs + a_off + kk * 16);
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t bb[4];
+            tc::ldsm_x4(bb, dOs + bt_off + np * 16 * LD + kk * 16);
+            tc::mma_bf16(dpt[2 * np], av, bb[0], bb[1]);
+            tc::mma_bf16(dpt[2 * np + 1], av, bb[2], bb[3]);
+          }
+        }
+      }
+
+      // P^T (dV) or dS^T (dK) in registers, as in attn_bwd_dkdv_tc, then the accumulating
+      // product with dO or Q (stored [query][d]: B by ldmatrix.trans)
+      const bool need_mask = q0 + BQ > S || kw0 + 16 > S || (causal && q0 < kw0 + 15);
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {   // k16 steps over the tile's queries
+        float x[2][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = 2 * kk + half;
+          const int c = j * 8 + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(Ls + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lv = (e & 1) ? l2.y : l2.x;
+            float pe = tc::ex2(fmaf(s[j][e], scale_log2, -lv * kLog2e));
+            if (need_mask) {
+              const int qi = q0 + c + (e & 1), kj = kw0 + g + (e >> 1) * 8;
+              if (qi >= S || kj >= S || (causal && kj > qi)) pe = 0.f;
+            }
+            if constexpr (DK) {
+              const float2 d2 = *reinterpret_cast<const float2*>(Ds + c);
+              pe *= dpt[j][e] - ((e & 1) ? d2.y : d2.x);
+            }
+            x[half][e] = pe;
+          }
+        }
+        uint32_t hi[4], lo[4];
+        split_a(x, hi, lo);
+        const bf16* const bsrc = (DK ? Qs : dOs) + tr_off + kk * 16 * LD;
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp)
+          mma_split(acc[2 * dp], acc[2 * dp + 1], hi, lo, bsrc + dp * 16);
+      }
+    }
+    __syncthreads();                       // every warp is done with this stage
+  }
+
+  const int r0 = kw0 + g, r1 = r0 + 8;
+  if (part == nullptr) {
+    const float m = DK ? scale : 1.f;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      bf16* const o = out + kvoff + d * 8 + 2 * t;
+      if (r0 < S)
+        *reinterpret_cast<uint32_t*>(o + static_cast<long long>(r0) * HD) =
+            tc::pack_bf16(acc[d][0] * m, acc[d][1] * m);
+      if (r1 < S)
+        *reinterpret_cast<uint32_t*>(o + static_cast<long long>(r1) * HD) =
+            tc::pack_bf16(acc[d][2] * m, acc[d][3] * m);
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      float* const o = part + kvoff + d * 8 + 2 * t;
+      if (r0 < S)
+        *reinterpret_cast<float2*>(o + static_cast<long long>(r0) * HD) =
+            make_float2(acc[d][0], acc[d][1]);
+      if (r1 < S)
+        *reinterpret_cast<float2*>(o + static_cast<long long>(r1) * HD) =
+            make_float2(acc[d][2], acc[d][3]);
+    }
+  }
+}
+
+// dV (even blocks) or dK (odd) for one (64-key tile, kv head, head slice, batch); with more
+// than one slice, the slice's f32 partial into work[slice][dV, dK] (B, KV, S, hd)
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+attn_bwd_dkdv_sweep_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ dvec,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ work,
+                       int B, int H, int KV, int S, int slices, int causal, float scale,
+                       float scale_log2) {
+  // heaviest key tiles first; inside one key tile: batch, kv head, slice, then the two sweeps,
+  // so that the blocks reading the same Q and dO tiles run side by side
+  const int is_dk = blockIdx.x & 1;
+  int rest = blockIdx.x >> 1;
+  const int sl = rest % slices;
+  rest /= slices;
+  const int kvh = rest % KV;
+  rest /= KV;
+  const int b = rest % B;
+  const int k0 = (rest / B) * TcCfg<HD>::BKEY;
+  const long long n = static_cast<long long>(B) * KV * S * HD;
+  float* const part = slices > 1 ? work + (2LL * sl + is_dk) * n : nullptr;
+  if (is_dk)
+    dkdv_sweep<HD, true>(q, k, v, dout, lse, dvec, dk, part, b, H, KV, S, kvh, sl, slices, k0,
+                         causal, scale, scale_log2);
+  else
+    dkdv_sweep<HD, false>(q, k, v, dout, lse, dvec, dv, part, b, H, KV, S, kvh, sl, slices, k0,
+                          causal, scale, scale_log2);
+}
+
+// dV and dK from the slices' f32 partials (work: [slice][dV, dK][n4 groups of 4]), summed in
+// slice order, dK scaled, cast to bf16
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_finish(const float* __restrict__ work, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, long long n4, int slices, float scale) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n4) return;
+  const float4* const w = reinterpret_cast<const float4*>(work);
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    float4 a = w[which * n4 + i];
+    for (int sl = 1; sl < slices; ++sl) {
+      const float4 x = w[(2LL * sl + which) * n4 + i];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    const float m = which ? scale : 1.f;
+    uint2 o;
+    o.x = tc::pack_bf16(a.x * m, a.y * m);
+    o.y = tc::pack_bf16(a.z * m, a.w * m);
+    reinterpret_cast<uint2*>(which ? dk : dv)[i] = o;
+  }
+}
+
+// ------------------------------------------------------------------------------------------
 // launchers
 // ------------------------------------------------------------------------------------------
 
@@ -770,42 +1049,43 @@ int launch_dot(const void* o, const void* dout, void* dvec, long long rows, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// the CUDA-core kernels
-template <int HD, typename T>
+// the CUDA-core kernels (f32)
+template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
            const void* dout, void* dq, void* dk, void* dv, void* dvec, long long B, long long H,
            long long KV, long long S, int causal, cudaStream_t stream) {
   using C = Cfg<HD>;
   if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv<HD, T>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_bwd_dq<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(attn_bwd_dq<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = head_scale(HD);  // f32(hd**-0.5)
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(dvec);
 
-  int e = launch_dot<T>(o, dout, dvec, B * H * S, HD, stream);
+  int e = launch_dot<float>(o, dout, dvec, B * H * S, HD, stream);
   if (e != 0) return e;
 
   const unsigned n_t = static_cast<unsigned>((S + C::BT - 1) / C::BT);
-  attn_bwd_dkdv<HD, T><<<dim3(n_t, static_cast<unsigned>(KV), static_cast<unsigned>(B)),
-                         kThreads, C::SMEM, stream>>>(
-      qp, kp, vp, dop, lp, dp, static_cast<T*>(dk), static_cast<T*>(dv), static_cast<int>(H),
-      static_cast<int>(KV), static_cast<int>(S), causal, scale);
+  attn_bwd_dkdv<HD><<<dim3(n_t, static_cast<unsigned>(KV), static_cast<unsigned>(B)), kThreads,
+                      C::SMEM, stream>>>(qp, kp, vp, dop, lp, dp, static_cast<float*>(dk),
+                                         static_cast<float*>(dv), static_cast<int>(H),
+                                         static_cast<int>(KV), static_cast<int>(S), causal,
+                                         scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq<HD, T><<<dim3(n_t, static_cast<unsigned>(H), static_cast<unsigned>(B)), kThreads,
-                       C::SMEM, stream>>>(qp, kp, vp, dop, lp, dp, static_cast<T*>(dq),
-                                          static_cast<int>(H), static_cast<int>(KV),
-                                          static_cast<int>(S), causal, scale);
+  attn_bwd_dq<HD><<<dim3(n_t, static_cast<unsigned>(H), static_cast<unsigned>(B)), kThreads,
+                    C::SMEM, stream>>>(qp, kp, vp, dop, lp, dp, static_cast<float*>(dq),
+                                       static_cast<int>(H), static_cast<int>(KV),
+                                       static_cast<int>(S), causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -851,42 +1131,125 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tensor-core kernels at hd 160 and 256 (bf16): dK and dV in sweeps over `slices` head
+// slices (their f32 partials in `work` when slices > 1), then dQ
+template <int HD>
+int launch_tc_sweep(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                    const void* dout, void* dq, void* dk, void* dv, void* dvec, void* work,
+                    long long B, long long H, long long KV, long long S, long long slices,
+                    int causal, cudaStream_t stream) {
+  using C = TcCfg<HD>;
+  const long long n_kt = (S + C::BKEY - 1) / C::BKEY;
+  const long long n_qt = (S + C::BQQ - 1) / C::BQQ;
+  const long long n4 = B * KV * S * HD / 4;
+  if (slices < 1 || (H / KV) % slices != 0 || (slices > 1 && work == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (2 * n_kt * KV * B * slices > 0x7fffffffLL || n_qt * H * B > 0x7fffffffLL ||
+      (n4 + kThreads - 1) / kThreads > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_sweep_tc<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::SMEM_DKDV));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(attn_bwd_dq_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::SMEM_DQ));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = head_scale(HD);
+  const float scale_log2 = scale * kLog2e;
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dp = static_cast<const float*>(dvec);
+  bf16* dkp = static_cast<bf16*>(dk);
+  bf16* dvp = static_cast<bf16*>(dv);
+  float* wp = static_cast<float*>(work);
+
+  int e = launch_dot<bf16>(o, dout, dvec, B * H * S, HD, stream);
+  if (e != 0) return e;
+  attn_bwd_dkdv_sweep_tc<HD><<<static_cast<unsigned>(2 * n_kt * KV * B * slices), kTcThreads,
+                               C::SMEM_DKDV, stream>>>(
+      qp, kp, vp, dop, lp, dp, dkp, dvp, wp, static_cast<int>(B), static_cast<int>(H),
+      static_cast<int>(KV), static_cast<int>(S), static_cast<int>(slices), causal, scale,
+      scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (slices > 1) {
+    attn_bwd_dkdv_finish<<<static_cast<unsigned>((n4 + kThreads - 1) / kThreads), kThreads, 0,
+                           stream>>>(wp, dkp, dvp, n4, static_cast<int>(slices), scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  attn_bwd_dq_tc<HD><<<static_cast<unsigned>(n_qt * H * B), kTcThreads, C::SMEM_DQ, stream>>>(
+      qp, kp, vp, dop, lp, dp, static_cast<bf16*>(dq), static_cast<int>(B),
+      static_cast<int>(H), static_cast<int>(KV), static_cast<int>(S), static_cast<int>(n_qt),
+      causal, scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 route's dK/dV and dQ launches at one head dim: {smem bytes, resident blocks an SM}
+// of each into out[0..3]
+template <int HD, typename DKDV>
+int occupancy_tc(DKDV dkdv, int* out) {
+  using C = TcCfg<HD>;
+  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::SMEM_DKDV));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dq_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(C::SMEM_DQ));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, dkdv, kTcThreads,
+                                                        C::SMEM_DKDV);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, attn_bwd_dq_tc<HD>, kTcThreads,
+                                                        C::SMEM_DQ);
+  out[0] = static_cast<int>(C::SMEM_DKDV);
+  out[2] = static_cast<int>(C::SMEM_DQ);
+  return static_cast<int>(err);
+}
+
 bool bad_sizes(long long H, long long KV) { return KV <= 0 || H % KV != 0; }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  q/o/dout/dq: (B,H,S,hd); k/v/dk/dv: (B,KV,S,hd); one
 // dtype for all ten, contiguous (the wrapper checks); lse: the forward's f32 (B,H,S) row
-// log-sum-exp; dvec: f32 (B,H,S) scratch for D.  hd in {16, 32, 64, 128, 160, 256}.  Returns a
-// cudaError_t.
+// log-sum-exp; dvec: f32 (B,H,S) scratch for D.  hd in {16, 32, 64, 128, 160, 256}.  slices
+// and work: the bf16 route's head slices at hd 160 and 256 (a divisor of H / KV) and, when
+// slices > 1, f32 (slices, 2, B, KV, S, hd) scratch for their partials; read nowhere else.
+// Returns a cudaError_t.
 extern "C" {
 
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                             const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                            void* dvec, long long B, long long H, long long KV, long long S,
-                            long long hd, int causal, void* stream) {
+                            void* dvec, void* work, long long B, long long H, long long KV,
+                            long long S, long long hd, long long slices, int causal,
+                            void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (bad_sizes(H, KV)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
-    case 32: return launch<32, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
-    case 64: return launch<64, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 16: return launch<16>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 32: return launch<32>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+    case 64: return launch<64>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
     case 128:
-      return launch<128, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+      return launch<128>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
     case 160:
-      return launch<160, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+      return launch<160>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
     case 256:
-      return launch<256, float>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+      return launch<256>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// the route table: the tensor cores at hd 16-128, the CUDA cores at hd 160 and 256
+// the route table: the tensor cores at every head dim, dK and dV in head-slice sweeps at hd
+// 160 and 256
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                              const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                             void* dvec, long long B, long long H, long long KV, long long S,
-                             long long hd, int causal, void* stream) {
+                             void* dvec, void* work, long long B, long long H, long long KV,
+                             long long S, long long hd, long long slices, int causal,
+                             void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (bad_sizes(H, KV)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -897,9 +1260,24 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const 
     case 128:
       return launch_tc<128>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
     case 160:
-      return launch<160, __nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+      return launch_tc_sweep<160>(q, k, v, o, lse, dout, dq, dk, dv, dvec, work, B, H, KV, S,
+                                  slices, causal, st);
     case 256:
-      return launch<256, __nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, dvec, B, H, KV, S, causal, st);
+      return launch_tc_sweep<256>(q, k, v, o, lse, dout, dq, dk, dv, dvec, work, B, H, KV, S,
+                                  slices, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int flash_attention_bwd_bf16_occupancy(long long hd, void* out) {
+  int* const o = static_cast<int*>(out);
+  switch (hd) {
+    case 16: return occupancy_tc<16>(attn_bwd_dkdv_tc<16>, o);
+    case 32: return occupancy_tc<32>(attn_bwd_dkdv_tc<32>, o);
+    case 64: return occupancy_tc<64>(attn_bwd_dkdv_tc<64>, o);
+    case 128: return occupancy_tc<128>(attn_bwd_dkdv_tc<128>, o);
+    case 160: return occupancy_tc<160>(attn_bwd_dkdv_sweep_tc<160>, o);
+    case 256: return occupancy_tc<256>(attn_bwd_dkdv_sweep_tc<256>, o);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -5,7 +5,7 @@ the CUDA kernels (:mod:`.kernel`), which launch or raise.
 On a card, a call that needs a gradient (grad mode on and any input
 requiring grad) runs as a ``torch.autograd.Function``: the forward kernel
 also writes each row's log-sum-exp, and the backward is the hand-written
-backward kernel (bf16 at hd 16-128 on the tensor cores, the rest on the
+backward kernel (bf16 on the tensor cores at every head dim, f32 on the
 CUDA cores: ``kernel.bwd_route``).  A call without grad (serving,
 ``torch.no_grad``) runs the forward alone and writes no log-sum-exp."""
 from __future__ import annotations

@@ -23,8 +23,8 @@ from repro.kernels.flash_attention.ref import attention_ref as ref_oracle  # noq
 from repro.models.attention import full_causal_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as kernel_module  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    BWD_ROUTE_LAUNCHES, HEAD_DIMS, TC_BWD_HEAD_DIMS, bwd_route,
-    flash_attention_bwd_kernel, flash_attention_kernel,
+    BWD_ROUTE_LAUNCHES, HEAD_DIMS, SWEEP_BWD_HEAD_DIMS, TC_BWD_HEAD_DIMS,
+    bwd_route, bwd_slices, flash_attention_bwd_kernel, flash_attention_kernel,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -300,13 +300,16 @@ def _split_bf16(x):
 
 
 def tensor_core_bwd_emulation(q, k, v, o, lse, do, *, causal=True):
-    """The bf16 route of ``csrc/flash_attention_bwd.cu`` (hd 16-128) in
-    plain PyTorch, with its rounding: f32 scores and dP of the bf16 inputs
-    (exact products, f32 sums), P = 2^(S scale log2 e - LSE log2 e) with the
-    masked entries exactly 0, D = rowsum(dO o O) in f32, dS = P o (dP - D)
-    in f32; P and dS enter the accumulating products as bf16 hi + lo
-    halves, each multiplying the exact bf16 operand, summed in f32; dQ, dK
-    and dV rounded to the input dtype at the end."""
+    """The bf16 route of ``csrc/flash_attention_bwd.cu`` (every head dim)
+    in plain PyTorch, with its rounding: f32 scores and dP of the bf16
+    inputs (exact products, f32 sums), P = 2^(S scale log2 e - LSE log2 e)
+    with the masked entries exactly 0, D = rowsum(dO o O) in f32,
+    dS = P o (dP - D) in f32; P and dS enter the accumulating products as
+    bf16 hi + lo halves, each multiplying the exact bf16 operand, summed in
+    f32; dQ, dK and dV rounded to the input dtype at the end.  The sums run
+    in another order than the kernel's, which at hd 160 and 256 also sums
+    dK and dV per head slice in f32 and then over the slices in slice
+    order: only f32 sums move, the rounding this emulates is the same."""
     B, H, S, hd = q.shape
     KV = k.shape[1]
     G = H // KV
@@ -332,13 +335,21 @@ def tensor_core_bwd_emulation(q, k, v, o, lse, do, *, causal=True):
 
 
 def _tc_bwd_cases():
-    """chip_smoke.py's shapes that fit the CPU: hd 16/32/64/128 x S 1, 17,
-    63, 64, 65, 130; GQA 8:1 and 4:1 in turn; unmasked at S 17 and 65."""
+    """chip_smoke.py's shapes that fit the CPU: every head dim x S 1, 17,
+    63, 64, 65, 130; GQA 8:1 and 4:1 in turn; unmasked at S 17 and 65.
+    Then the sweep route's own: recurrentgemma-9b's MQA 16:1 at hd 256 up
+    to S 256, causal and unmasked, ragged against its 32-query and 64-key
+    tiles (S 31, 33, 97, 129); stablelm-12b's GQA 4:1 at hd 160."""
     cases = []
     for hd in TC_BWD_HEAD_DIMS:
         for i, S in enumerate((1, 17, 63, 64, 65, 130)):
             cases.append((2, 8, 1 if i % 2 == 0 else 2, S, hd,
                           S not in (17, 65)))
+    cases += [(2, 16, 1, 256, 256, True), (1, 16, 1, 256, 256, False),
+              (1, 16, 1, 97, 256, True), (2, 16, 1, 33, 256, False),
+              (1, 16, 1, 31, 256, True),
+              (2, 16, 4, 160, 160, True), (1, 16, 4, 129, 160, False),
+              (1, 8, 2, 33, 160, True)]
     return cases
 
 
@@ -395,18 +406,46 @@ def test_tensor_core_bwd_rounding_matches_the_plain_formulas(B, H, KV, S, hd,
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_the_backward_route_table(dtype, hd):
-    """bf16 at hd 16-128 takes the tensor-core kernels, f32 and bf16 at hd
-    160 and 256 the CUDA-core ones; ``TC_BWD_HEAD_DIMS`` is exactly the
-    head dims ``flash_attention_bwd_bf16`` sends to ``launch_tc``."""
-    want = ("tensor_cores" if dtype == torch.bfloat16 and hd <= 128
-            else "cuda_cores")
+    """bf16 takes the tensor-core kernels at every head dim, f32 the
+    CUDA-core ones; ``TC_BWD_HEAD_DIMS`` is exactly the head dims
+    ``flash_attention_bwd_bf16`` sends to a tensor-core launcher
+    (``launch_tc``, or ``launch_tc_sweep`` at ``SWEEP_BWD_HEAD_DIMS``),
+    and the bf16 entry names no CUDA-core launcher."""
+    want = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
     assert bwd_route(dtype, hd) == want
     src = (Path(kernel_module.__file__).parents[1] / "csrc"
            / "flash_attention_bwd.cu").read_text()
     bf16_entry = src[src.index("int flash_attention_bwd_bf16("):]
-    assert tuple(int(d) for d in re.findall(r"launch_tc<(\d+)>",
-                                            bf16_entry)) == TC_BWD_HEAD_DIMS
+    launchers = re.findall(r"(launch\w*)<(\d+)", bf16_entry)
+    assert tuple(int(d) for _, d in launchers) == TC_BWD_HEAD_DIMS
+    assert [n for n, _ in launchers] == [
+        "launch_tc_sweep" if int(d) in SWEEP_BWD_HEAD_DIMS else "launch_tc"
+        for _, d in launchers]
     assert set(BWD_ROUTE_LAUNCHES) == {"tensor_cores", "cuda_cores"}
     BWD_ROUTE_LAUNCHES[want] += 1
     kernel_module.reset_launches()
     assert set(BWD_ROUTE_LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("dtype,B,H,KV,S,hd,n_sm,want", [
+    # recurrentgemma-9b's training shape: 16 key tiles x 2 batches = 32
+    # blocks a sweep; 8 slices of 2 heads give 256 >= 132
+    (torch.bfloat16, 2, 16, 1, 1024, 256, 132, 8),
+    # stablelm-12b's GQA 32:8: 16 x 8 x 2 = 256 blocks already
+    (torch.bfloat16, 2, 32, 8, 1024, 160, 132, 1),
+    (torch.bfloat16, 1, 32, 8, 1024, 160, 132, 2),
+    # a short sequence: the whole group
+    (torch.bfloat16, 1, 16, 1, 64, 256, 132, 16),
+    # serving's prefill shape, recurrentgemma at 4 x 2048
+    (torch.bfloat16, 4, 16, 1, 2048, 256, 132, 2),
+    # other routes take no slices
+    (torch.float32, 2, 16, 1, 1024, 256, 132, 1),
+    (torch.bfloat16, 2, 16, 1, 1024, 128, 132, 1),
+])
+def test_the_backward_head_slices(dtype, B, H, KV, S, hd, n_sm, want):
+    """``bwd_slices``: the fewest head slices that divide the group and
+    give each dK/dV sweep at least one block an SM, only on the bf16 route
+    at hd 160 and 256."""
+    got = bwd_slices(dtype, B, H, KV, S, hd, n_sm)
+    assert got == want
+    assert (H // KV) % got == 0
