@@ -189,11 +189,21 @@ Phases, each printing one JSON line:
             within 1e-4 of its max-abs (1e-3 for mamba2), one forward and
             one backward launch per attention, ssm and rec layer on the
             card, none on the CPU; two adamw_update steps on the CPU's
-            gradients on each side, masters within 1e-6 of each max-abs.
+            gradients on each side, masters within 1e-6 of each max-abs;
+15. dist_train: ``repro_torch.distributed.build_train_step`` at world
+            size 1 (NCCL, a 1 x 1 ("data", "model") mesh): full minicpm-2b
+            at the train phase's batch, 2 steps in fsdp and in tp (ZeRO-1)
+            mode with the same losses, grad norms and parameter bits as
+            ``launch/train.py``'s ``train_step``, seconds per step, peak
+            memory and the extra parameter copies the DTensor path holds;
+            recurrentgemma-9b at full width with remat full at 6 layers
+            (against remat none within 1e-3), 9 and 12 layers (each peak,
+            or the out-of-memory, recorded; no depth is tried after one
+            that ran out).
 
 Then the ``kernels`` line (each kernel's launches summed over the session,
-socket, fleet, gateway, checkpoint, serve and train runs, and split by run
-in ``launches_by_path``), and last
+socket, fleet, gateway, checkpoint, serve, train and dist_train runs, and
+split by run in ``launches_by_path``), and last
 ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -3382,6 +3392,289 @@ def phase_train_agree() -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+# the distributed step's legs (one card: a 1 x 1 ("data", "model") mesh
+# over NCCL): full minicpm-2b through build_train_step in both modes
+# against train_step, DIST_STEPS steps each; recurrentgemma-9b at full width
+# with remat, at each depth of DIST_RG_LAYERS (the first against remat none)
+DIST_STEPS = 2
+DIST_RG_LAYERS = (6, 9, 12)
+# remat's loss and grad norm against no remat, bf16 on the card: the
+# train phase's margin for a rerun of the same steps
+REMAT_TOL = RESUME_LOSS_TOL
+
+
+def phase_dist_train(tmp: Path) -> dict:
+    """The distributed layer's data-parallel train step
+    (``repro_torch.distributed.build_train_step``) at world size 1 on the
+    card: NCCL with a ``FileStore`` rendezvous made here, a 1 x 1 ("data",
+    "model") mesh from ``launch.mesh.make_dev_mesh``.
+    1. full minicpm-2b, seeded bf16 weights, batch 2 x seq 1024 at lr 2e-5
+       (the train phase's), DIST_STEPS steps of ``launch/train.py``'s
+       ``train_step``, then DIST_STEPS steps of ``build_train_step`` in
+       ``fsdp`` and in ``tp`` (ZeRO-1) mode from the same weights and
+       batches (remat none, as ``train_step`` has), then ``train_step``
+       again: every loss and grad norm and every parameter leaf the same
+       bits as ``train_step``'s; seconds per step and peak device memory
+       of each, and the extra memory the DTensor step works in beyond
+       ``train_step``'s, in copies of the parameters;
+    2. recurrentgemma-9b at full width cut to 6 layers, one step with
+       remat full against one with remat none from the same weights and
+       batch: loss and grad norm within REMAT_TOL; then remat full at 9
+       and 12 layers, each peak recorded, or the out-of-memory recorded as
+       the finding it is (a depth after one that ran out is not tried).
+       Each arm is one cold step, so only peaks and values are reported,
+       no step times.  Every step's launches checked (remat full runs
+       each forward kernel twice).
+    Returns the kernels' launches in the DTensor steps."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.reducer import (
+        tree_flatten_with_path, tree_map_with_path,
+    )
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import (
+        DistContext, build_train_step, distribute_tree, gather_tree,
+        init_sharded_opt_state,
+    )
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import LM
+    from repro_torch.models.layers import param_count
+    from repro_torch.optim import init_opt_state
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for m in lm_kernels():
+        m.reset_launches()
+    path_launches: dict = {}
+
+    def counted(fn, *args):
+        """fn(*args) with the kernels' launches added to the path's."""
+        before = lm_launches()
+        out = fn(*args)
+        got = {k: n - before[k] for k, n in lm_launches().items()}
+        for k, n in got.items():
+            path_launches[k] = path_launches.get(k, 0) + n
+        return out, got
+
+    def timed_steps(step, params, opt, batches, on_path):
+        """Each step between two synchronises -> (params, opt, history,
+        the memory held before the first step)."""
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        hist = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if on_path:
+                (params, opt, m), got = counted(step, params, opt, b)
+            else:
+                params, opt, m = step(params, opt, b)
+                got = None
+            torch.cuda.synchronize()
+            hist.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "seconds": time.perf_counter() - t0,
+                         "launches": got})
+        return params, opt, hist, held
+
+    def fresh_peak():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / "dist-store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_dev_mesh(1, 1, device="cuda")
+        # 1. full minicpm-2b: train_step, then both modes
+        cfg = get_config(TRAIN_ARCH)
+        shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+        tc = TrainConfig(learning_rate=float(TRAIN_LR), total_steps=DIST_STEPS,
+                         warmup_steps=max(DIST_STEPS // 10, 1),
+                         schedule=cfg.schedule, remat="none")
+        lm = LM(cfg, max_seq=TRAIN_SEQ, device="cuda")
+        pipe = TokenPipeline(cfg, shape, seed=0)
+        batches = [pipe.train_batch(s) for s in range(DIST_STEPS)]
+        p0 = lm.init(tc.seed, torch.bfloat16)
+        p_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_flatten_with_path(p0))
+        at_start = fresh_peak()
+
+        def plain_leg():
+            """DIST_STEPS of train_step from a clone of the weights ->
+            (history, peak, memory held before the steps, parameters)."""
+            fresh_peak()
+            params = tree_map_with_path(lambda _, t: t.clone(), p0)
+            params, opt, hist, held = timed_steps(
+                lambda p, o, b: train_step(lm, tc, p, o, b), params,
+                init_opt_state(params), batches, on_path=False)
+            peak = torch.cuda.max_memory_allocated()
+            return hist, peak, held, {k: t.cpu() for k, t in
+                                      tree_flatten_with_path(params)}
+
+        # train_step before and after the two modes (its time and memory
+        # in this process, in turns)
+        ref_hist, ref_peak, ref_held, want = plain_leg()
+        # the step's own memory above what it was handed (the train_step
+        # leg also holds a clone of the weights it starts from)
+        ref_work = ref_peak - ref_held
+        want_step = train_launches(cfg, TRAIN_SEQ)
+        modes = {}
+        for mode in ("fsdp", "tp"):
+            fresh_peak()
+            ctx = DistContext.create(cfg, mesh, mode=mode)
+            step, (p_sh, o_sh, _) = build_train_step(lm, tc, ctx, shape)
+            params = distribute_tree(p0, ctx, p_sh)
+            aliased = all(
+                t.to_local().data_ptr() == w.data_ptr() for (_, t), (_, w) in
+                zip(tree_flatten_with_path(params),
+                    tree_flatten_with_path(p0)))
+            params, opt, hist, held = timed_steps(
+                step, params, init_sharded_opt_state(ctx, params, o_sh),
+                batches, on_path=True)
+            peak = torch.cuda.max_memory_allocated()
+            for h, r in zip(hist, ref_hist):
+                if (h["loss"], h["grad_norm"]) != (r["loss"], r["grad_norm"]):
+                    raise AssertionError(f"dist_train {mode}: loss and grad "
+                                         f"norm {h} against train_step's {r}")
+                if h["launches"] != want_step:
+                    raise AssertionError(f"dist_train {mode}: launches "
+                                         f"{h['launches']}, expected "
+                                         f"{want_step}")
+            got = dict(tree_flatten_with_path(gather_tree(params)))
+            unequal = [k for k, t in want.items()
+                       if not torch.equal(got[k].cpu(), t)]
+            if unequal or sorted(got) != sorted(want):
+                raise AssertionError(f"dist_train {mode}: parameters unlike "
+                                     f"train_step's: {unequal[:5]}")
+            modes[mode] = {
+                "seconds_per_step": [h["seconds"] for h in hist],
+                "peak_memory_bytes": peak, "held_before_steps": held,
+                "params_alias_the_weights": aliased,
+                "extra_parameter_copies": (peak - held - ref_work) / p_bytes,
+                "param_leaves_bit_equal": len(want),
+                "losses": [h["loss"] for h in hist],
+                "grad_norms": [h["grad_norm"] for h in hist]}
+            del params, opt, got, step
+        again, again_peak, again_held, again_p = plain_leg()
+        if [(h["loss"], h["grad_norm"]) for h in again] != \
+                [(h["loss"], h["grad_norm"]) for h in ref_hist] or not all(
+                    torch.equal(again_p[k], t) for k, t in want.items()):
+            raise AssertionError("dist_train: train_step's rerun differs")
+        del p0, want, again_p
+        emit({"phase": "dist_train", "arch": TRAIN_ARCH, "card": card_line(),
+              "world_size": dist.get_world_size(), "backend": dist.get_backend(),
+              "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+              "params": param_count(lm.spec), "param_bytes": p_bytes,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": "bfloat16",
+              "steps": DIST_STEPS, "remat": "none",
+              "train_step": {"seconds_per_step": [h["seconds"]
+                                                  for h in ref_hist],
+                             "peak_memory_bytes": ref_peak,
+                             "held_before_steps": ref_held,
+                             "again_seconds_per_step": [h["seconds"]
+                                                        for h in again],
+                             "again_peak_memory_bytes": again_peak,
+                             "again_held_before_steps": again_held,
+                             "losses": [h["loss"] for h in ref_hist],
+                             "grad_norms": [h["grad_norm"]
+                                            for h in ref_hist]},
+              "allocated_at_start": at_start, "modes": modes,
+              "launches_per_step": want_step,
+              "train_phase_in_perf_md": "0.379 s a step, 53.7 GB peak "
+                                        "(PERF.md section 5)"})
+
+        # 2. recurrentgemma-9b with remat
+        legs = []
+        rg = get_config("recurrentgemma-9b")
+        rshape = ShapeConfig("smoke", "train", RG_TRAIN_SEQ, RG_TRAIN_BATCH)
+        for layers in DIST_RG_LAYERS:
+            if legs and not legs[-1]["fits"]:
+                legs.append({"layers": layers, "fits": False,
+                             "not_tried": f"{legs[-1]['layers']} layers "
+                                          f"ran out of memory"})
+                continue
+            rcfg = dataclasses.replace(rg, num_layers=layers)
+            rlm = LM(rcfg, max_seq=RG_TRAIN_SEQ, device="cuda")
+            batch = TokenPipeline(rcfg, rshape, seed=0).train_batch(0)
+            ctx = DistContext.create(rcfg, mesh, mode="tp")
+            want_fwd = train_launches(rcfg, RG_TRAIN_SEQ)
+            runs = ("none", "full") if layers == DIST_RG_LAYERS[0] else \
+                ("full",)
+            leg = {"layers": layers, "params": param_count(rlm.spec)}
+            try:
+                p0 = rlm.init(0, torch.bfloat16)
+                for remat in runs:
+                    fresh_peak()
+                    rtc = TrainConfig(learning_rate=float(TRAIN_LR),
+                                      total_steps=1, warmup_steps=1,
+                                      schedule=rcfg.schedule, remat=remat)
+                    step, (p_sh, o_sh, _) = build_train_step(rlm, rtc, ctx,
+                                                             rshape)
+                    params = distribute_tree(p0, ctx, p_sh)
+                    params, opt, hist, _ = timed_steps(
+                        step, params, init_sharded_opt_state(ctx, params,
+                                                             o_sh),
+                        [batch], on_path=True)
+                    twice = 2 if remat != "none" else 1
+                    expect = {k: n * (twice if k in ("flash_attention",
+                                                     "rglru_scan") else 1)
+                              for k, n in want_fwd.items()}
+                    if hist[0]["launches"] != expect:
+                        raise AssertionError(
+                            f"dist_train remat {remat} at {layers} layers: "
+                            f"launches {hist[0]['launches']}, expected "
+                            f"{expect}")
+                    leg[remat] = {"loss": hist[0]["loss"],
+                                  "grad_norm": hist[0]["grad_norm"],
+                                  "peak_memory_bytes":
+                                      torch.cuda.max_memory_allocated(),
+                                  "launches": hist[0]["launches"]}
+                    del params, opt, step
+                leg["fits"] = True
+            except torch.cuda.OutOfMemoryError as e:
+                leg["fits"] = False
+                leg["out_of_memory"] = str(e).splitlines()[0]
+            finally:
+                p0 = params = opt = step = None
+                gc.collect()
+                torch.cuda.empty_cache()
+            if layers == DIST_RG_LAYERS[0]:
+                if not leg["fits"]:
+                    raise AssertionError(f"dist_train: recurrentgemma-9b at "
+                                         f"{layers} layers: {leg}")
+                a, b = leg["none"], leg["full"]
+                for k in ("loss", "grad_norm"):
+                    if abs(a[k] - b[k]) > REMAT_TOL * max(1.0, abs(a[k])):
+                        raise AssertionError(f"dist_train remat full {k} "
+                                             f"{b[k]} against none {a[k]}")
+                leg["same_bits"] = (a["loss"], a["grad_norm"]) == \
+                    (b["loss"], b["grad_norm"])
+            legs.append(leg)
+        emit({"phase": "dist_train", "arch": "recurrentgemma-9b",
+              "card": card_line(), "batch": RG_TRAIN_BATCH,
+              "seq": RG_TRAIN_SEQ, "dtype": "bfloat16", "mode": "tp",
+              "tolerance": REMAT_TOL, "legs": legs,
+              "train_phase_in_perf_md": "6 layers, remat none: 76.7 GB "
+                                        "peak; 9 and 12 layers ran out of "
+                                        "memory (PERF.md section 5)",
+              "seconds": time.perf_counter() - t_phase})
+    finally:
+        dist.destroy_process_group()
+    return path_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3419,6 +3712,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         by_path["train"] = phase_train(Path(tmp))
     phase_train_agree()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        by_path["dist_train"] = phase_dist_train(Path(tmp))
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()
                                  if r["name"] in n}

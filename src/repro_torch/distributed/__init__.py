@@ -1,8 +1,28 @@
-# The fault-tolerance runtime of the fleet plane.  The reference package's
-# mesh context (``DistContext``, ``make_rules``, ``shard``) and its sharded
-# steps belong to the distributed layer, which is not ported yet.
+# The distributed layer: the mesh context and its rules, the placement
+# trees and the data-parallel train step (DistContext, make_rules, shard,
+# the sharding trees, build_train_step with FSDP and ZeRO-1), and the
+# fault-tolerance runtime of the fleet plane.  context is imported first:
+# the model modules import it while this package may still be loading.
+from repro_torch.distributed.context import (
+    DistContext, gather_rows, make_rules, shard,
+)
 from repro_torch.distributed.fault import (
     Coordinator, ElasticTrainer, FaultEvent, WorkerState,
 )
+from repro_torch.distributed.sharding import (
+    batch_pspec, batch_shardings, cache_shardings, fsdp_sharding,
+    opt_shardings, params_shardings, zero1_sharding,
+)
+from repro_torch.distributed.steps import (
+    build_train_step, distribute_tree, gather_tree, init_sharded_opt_state,
+    input_specs,
+)
 
-__all__ = ["Coordinator", "ElasticTrainer", "FaultEvent", "WorkerState"]
+__all__ = [
+    "Coordinator", "DistContext", "ElasticTrainer", "FaultEvent",
+    "WorkerState", "batch_pspec", "batch_shardings", "build_train_step",
+    "cache_shardings", "distribute_tree", "fsdp_sharding", "gather_rows",
+    "gather_tree", "init_sharded_opt_state", "input_specs", "make_rules",
+    "opt_shardings", "params_shardings", "shard",
+    "zero1_sharding",
+]

@@ -1,0 +1,244 @@
+"""The data-parallel train step (port of ``repro/distributed/steps.py``:
+``input_specs`` and ``build_train_step``) on ``torch.distributed``.
+
+The reference jits its step over sharded inputs and lets GSPMD place the
+collectives.  Here every rank runs the step on local tensors and moves the
+data itself:
+
+- the parameters are DTensors at :func:`~.sharding.params_shardings`'
+  placements (FSDP: sharded over every mesh axis; ``tp`` with a ``model``
+  axis of 1: replicated), m, v and master at
+  :func:`~.sharding.opt_shardings`' (FSDP, or ZeRO-1: sharded over the
+  data ranks), the step count a replicated tensor;
+- one step gathers each parameter to full, runs ``LM.loss`` and its
+  backward on this rank's rows of each microbatch, sums the gradients in
+  f32 over the microbatches (the reference's ``steps.py:62-82``), reduces
+  each gradient to its leaf's optimizer placement (the mean over the
+  batch group: a reduce-scatter where the leaf is sharded, an all-reduce
+  where it is not), takes the global gradient norm with every element
+  counted once, runs ``adamw_update``'s arithmetic on the local shards and
+  redistributes the new parameters (the masters cast to the parameters'
+  dtype) to their placements.
+
+The gather is whole-model: every parameter is full, and so is its
+gradient, from the start of the step until the optimizer runs; only m, v
+and master stay sharded.  So ``fsdp`` here holds per rank what ZeRO-1
+holds (the parameters and gradients in full, the optimizer state over the
+ranks), not what the reference's GSPMD step holds, which gathers inside
+the layer scan.  A model whose parameters do not fit one rank
+(qwen3-moe-235b-a22b's 470 GB of bf16) cannot run; a gather per layer
+inside ``decoder_forward`` and a reduce-scatter of each layer's gradients
+as the backward reaches it is ROADMAP A10b.
+
+Microbatch i is the global batch's rows ``[i B/n, (i+1) B/n)``, as the
+reference reshapes it; each rank takes its block of every microbatch, so a
+moe layer routes the same tokens together as the reference does.  At
+world size 1 every collective moves nothing (DTensor keeps the local
+tensor where placements differ only on mesh axes of one rank) and the
+step is ``train_step``'s arithmetic op for op.
+
+``mode="tp"`` with a ``model`` axis above 1 needs tensor-parallel compute
+over that axis, which the port does not have yet (ROADMAP A10b), and
+raises.  The prefill and decode steps wait for the same slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import (
+    DTensor, Partial, Replicate, distribute_tensor,
+)
+from torch.distributed.tensor import zeros as dzeros
+
+from repro_torch.core.reducer import tree_flatten_with_path, tree_map_with_path
+from repro_torch.distributed.context import DistContext
+from repro_torch.distributed.sharding import (
+    map_tree, axes_tree, batch_pspec, batch_shardings, data_axes,
+    opt_shardings, params_shardings, shapes_tree,
+)
+from repro_torch.models.layers import spec_leaves
+from repro_torch.optim.optimizer import OptState, adamw_update
+
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype (the reference's ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def input_specs(cfg, shape, dtype=torch.bfloat16) -> dict:
+    """The model inputs of one (arch x shape) cell, as :class:`TensorSpec`."""
+    B, S = shape.global_batch, shape.seq_len
+    n_text = S - (cfg.num_patches if cfg.family == "vlm" else 0)
+    if shape.kind == "train":
+        out = {"tokens": TensorSpec((B, n_text + 1), torch.int32)}
+    elif shape.kind == "prefill":
+        out = {"tokens": TensorSpec((B, n_text), torch.int32)}
+    else:
+        out = {"token": TensorSpec((B, 1), torch.int32)}
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            out["vision_embeds"] = TensorSpec((B, cfg.num_patches,
+                                               cfg.d_model), dtype)
+        if cfg.family == "encdec":
+            out["encoder_frames"] = TensorSpec((B, cfg.encoder_seq,
+                                                cfg.d_model), dtype)
+    return out
+
+
+# ----------------------------------------------------------------------
+# moving whole trees in and out
+# ----------------------------------------------------------------------
+
+def distribute_tree(tree, ctx: DistContext, specs):
+    """Full tensors (the same on every rank) -> DTensors at ``specs``."""
+    return map_tree(lambda t, s: distribute_tensor(t, ctx.mesh,
+                                               ctx.placements(s)),
+                tree, specs)
+
+
+def gather_tree(tree):
+    """DTensors -> full tensors on every rank (other leaves as they are)."""
+    return tree_map_with_path(
+        lambda _, t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+
+
+def init_sharded_opt_state(ctx: DistContext, params,
+                           opt_specs: OptState) -> OptState:
+    """``optim.init_opt_state`` of DTensor parameters, each leaf of m, v and
+    master made at its ``opt_specs`` placement (no full f32 copy on any
+    rank)."""
+    def master(p, s):
+        return p.redistribute(ctx.mesh, ctx.placements(s)).to(
+            torch.float32, copy=True)
+
+    def zeros(p, s):
+        return dzeros(p.shape, dtype=torch.float32, device_mesh=ctx.mesh,
+                      placements=ctx.placements(s))
+    device = next(iter(tree_flatten_with_path(params)))[1].device
+    return OptState(torch.zeros((), dtype=torch.int32, device=device),
+                    map_tree(zeros, params, opt_specs.m),
+                    map_tree(zeros, params, opt_specs.v),
+                    map_tree(master, params, opt_specs.master))
+
+
+# ----------------------------------------------------------------------
+# the train step
+# ----------------------------------------------------------------------
+
+def build_train_step(lm, tc, ctx: DistContext, shape):
+    """Returns ``(step_fn, (param_specs, opt_specs, batch_specs))``.
+
+    ``step_fn(params, opt, batch) -> (params, opt, {"loss", "lr",
+    "grad_norm"})``: ``params`` DTensors at ``param_specs``, ``opt`` an
+    ``OptState`` of DTensors at ``opt_specs`` (:func:`init_sharded_opt_state`),
+    ``batch`` the global batch (the same arrays on every rank; each rank
+    reads its rows).  m, v and master are updated in place, as
+    ``adamw_update`` does."""
+    cfg = lm.cfg
+    if ctx.mode == "tp" and ctx.axes.get("model", 1) > 1:
+        raise NotImplementedError(
+            "mode='tp' with a 'model' axis above 1 needs tensor-parallel "
+            "compute over it, which is not ported yet (ROADMAP A10b); use "
+            "mode='fsdp', or a 'model' axis of 1 (data parallel with ZeRO-1)")
+    n_micro = max(tc.microbatches, 1)
+    B = shape.global_batch
+    axes, shapes = axes_tree(lm.spec), shapes_tree(lm.spec)
+    p_sh = params_shardings(ctx, axes, shapes)
+    o_sh = opt_shardings(ctx, axes, shapes)
+    b_sh = batch_shardings(ctx, input_specs(cfg, shape), B)
+
+    mesh, names = ctx.mesh, tuple(ctx.axes)
+    split = batch_pspec(ctx, B) is not None
+    group = ctx.batch_group() if split else None
+    n_ranks = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    if B % n_micro or (B // n_micro) % n_ranks:
+        raise ValueError(f"a batch of {B} rows in {n_micro} microbatches "
+                         f"does not split over {n_ranks} ranks")
+    rows = B // n_micro // n_ranks
+    loss_ctx = ctx if group is not None else None
+    # a gradient is the mean over the ranks that split the batch
+    batch_axes = set(data_axes(ctx))
+    grad_pl = tuple(Partial("avg") if group is not None and a in batch_axes
+                    else Replicate() for a in names)
+    p_pl = {k: ctx.placements(s) for k, s in spec_leaves(p_sh)}
+    o_pl = {k: ctx.placements(s) for k, s in spec_leaves(o_sh.m)}
+    norm_group = ctx.group(names)
+    coord = mesh.get_coordinate() if norm_group is not None else None
+    # a leaf's squares are added by the ranks at coordinate 0 of every mesh
+    # axis it is replicated over, so each element counts once
+    once = torch.tensor(
+        [float(all(c == 0 for c, pl in zip(coord, o_pl[k])
+                   if isinstance(pl, Replicate)))
+         for k in o_pl] if coord is not None else [], dtype=torch.float32)
+
+    def norm_reduce(sq):
+        if norm_group is None:
+            return sq
+        sq = sq * once.to(sq.device)
+        dist.all_reduce(sq, group=norm_group)
+        return sq
+
+    def place(t, src, dst, like):
+        """This rank's ``t`` at placements src -> a DTensor at dst."""
+        return DTensor.from_local(t, mesh, src, run_check=False,
+                                  shape=like.shape, stride=like.stride()
+                                  ).redistribute(mesh, dst)
+
+    def step_fn(params, opt: OptState, batch):
+        full = {k: p.full_tensor().detach().requires_grad_(True)
+                for k, p in tree_flatten_with_path(params)}
+        tree = tree_map_with_path(lambda k, _: full[k], params)
+        grads, loss = None, None
+        for i in range(n_micro):
+            lo = i * (B // n_micro) + rank * rows
+            mb = {k: v[lo:lo + rows] for k, v in batch.items()}
+            value, _ = lm.loss(tree, mb, loss_ctx, remat=tc.remat)
+            value.backward()
+            g = {k: torch.zeros_like(t) if t.grad is None else t.grad
+                 for k, t in full.items()}
+            for t in full.values():
+                t.grad = None
+            if n_micro == 1:
+                grads, loss = g, value.detach()
+            elif grads is None:
+                grads = {k: x.to(torch.float32, copy=True)
+                         for k, x in g.items()}
+                loss = value.detach()
+            else:
+                for k, x in g.items():
+                    grads[k].add_(x.float())
+                loss = loss + value.detach()
+            del g, value
+        if n_micro > 1:
+            grads = {k: x / n_micro for k, x in grads.items()}
+            loss = loss / n_micro
+        if group is not None:          # the mean of the ranks' row means
+            dist.all_reduce(loss, group=group)
+            loss = loss / n_ranks
+        del full, tree
+        with torch.no_grad():
+            g_local = {k: place(g, grad_pl, o_pl[k], g).to_local()
+                       for k, g in grads.items()}
+            del grads
+
+            def local(t):
+                return tree_map_with_path(lambda _, x: x.to_local(), t)
+            state, new_local, metrics = adamw_update(
+                tc, OptState(opt.step, local(opt.m), local(opt.v),
+                             local(opt.master)),
+                tree_map_with_path(lambda k, _: g_local[k], params),
+                local(params), norm_reduce=norm_reduce)
+            del g_local
+            params_by = dict(tree_flatten_with_path(params))
+            new_params = tree_map_with_path(
+                lambda k, w: place(w, o_pl[k], p_pl[k], params_by[k]),
+                new_local)
+        return (new_params, OptState(state.step, opt.m, opt.v, opt.master),
+                {"loss": loss, **metrics})
+
+    return step_fn, (p_sh, o_sh, b_sh)
+

@@ -138,3 +138,14 @@ def init_cache(cfg, B: int, cache_len: int, dtype, device, *,
         "cross_v": zeros(L, B, KV, Senc, hd),
     }, "pos": torch.zeros((B,), dtype=torch.int32, device=device),
         "filled": 0}
+
+
+def cache_axes(cfg, ctx=None):
+    """The logical axes of every leaf of :func:`init_cache`'s cache (its
+    host-side ``filled`` count aside), as the reference's ``cache_axes``."""
+    sp = ctx is not None and ctx.sp_decode
+    self_ax = ("layers", "batch", None, "cache_seq" if sp else None, None)
+    cross_ax = ("layers", "batch", None, None, None)
+    return {"stack": {"self_k": self_ax, "self_v": self_ax,
+                      "cross_k": cross_ax, "cross_v": cross_ax},
+            "pos": ("batch",)}

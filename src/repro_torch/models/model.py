@@ -8,6 +8,7 @@ with cross attention).
     lm = LM(cfg, max_seq=4096, device="cuda")
     lm.init(seed)                        # or lm.load_reference(numpy tree)
     loss, metrics = lm.loss(params, {"tokens": tokens})   # (B, S+1) tokens
+    loss, metrics = lm.loss(params, batch, ctx, remat="dots")  # a DP step's
     logits, cache = lm.prefill(tokens, cache_len=S + gen,
                                vision_embeds=..., encoder_frames=...)
     logits, cache = lm.decode_step(cache, token)
@@ -85,9 +86,10 @@ class LM:
         return tensor_from_numpy(a, self.device)
 
     def _hidden(self, params, tokens, cache, vision_embeds=None,
-                encoder_frames=None):
+                encoder_frames=None, ctx=None, remat: str = "none"):
         """The final-normed hidden states (B, S_total, d) and the moe aux
-        loss (an f32 zero for the other families)."""
+        loss (an f32 zero for the other families); ``ctx`` and ``remat``
+        as :meth:`loss` takes them."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = embed_lookup(params["embed"], tokens)
@@ -105,7 +107,8 @@ class LM:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
             x, aux = transformer.decoder_forward(params["decoder"], x, cfg,
-                                                 positions, cache)
+                                                 positions, cache, ctx=ctx,
+                                                 remat=remat)
         if cache is not None:
             cache["pos"].fill_(S)
             cache["filled"] = S
@@ -142,18 +145,26 @@ class LM:
                             encoder_frames)
         return self._logits(params, x), cache
 
-    def loss(self, params, batch: dict):
+    def loss(self, params, batch: dict, ctx=None, *, remat: str = "none"):
         """Next-token cross entropy (+ the moe aux loss), as the
         reference's ``LM.loss``: ``batch["tokens"]`` (B, S+1) splits into
         inputs and labels; a vlm's logits past its ``num_patches`` patch
         positions are scored, an encdec's decoder runs over
         ``batch["encoder_frames"]``.  Returns (ce + aux, {"ce": ce, "aux":
-        aux}), f32 0-d tensors, differentiable in ``params``."""
+        aux}), f32 0-d tensors, differentiable in ``params``.
+
+        ``ctx``: the ``DistContext`` of a data-parallel step whose batch
+        rows are split over its batch group, ``batch`` this rank's rows:
+        the moe layers then route the group's tokens, as the reference's
+        step does (:mod:`repro_torch.models.moe`).  ``remat``: none, dots
+        or full, the reference's activation checkpointing of each decoder
+        scan body (:func:`repro_torch.models.transformer.decoder_forward`;
+        the encdec family's decoder has none, as in the reference)."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         inp, labels = tokens[:, :-1], tokens[:, 1:]
         x, aux = self._hidden(params, inp, None, batch.get("vision_embeds"),
-                              batch.get("encoder_frames"))
+                              batch.get("encoder_frames"), ctx, remat)
         logits = self._logits(params, x)
         if cfg.family == "vlm":
             logits = logits[:, cfg.num_patches:]
@@ -208,3 +219,10 @@ class LM:
                                      dtype or self.dtype, self.device)
         return transformer.init_cache(self.cfg, B, cache_len,
                                       dtype or self.dtype, self.device)
+
+    def cache_axes(self, ctx=None) -> dict:
+        """The logical axes of the cache's leaves (its ``filled`` count
+        aside), for ``repro_torch.distributed.sharding.cache_shardings``."""
+        if self.cfg.family == "encdec":
+            return encdec.cache_axes(self.cfg, ctx)
+        return transformer.cache_axes(self.cfg, ctx)

@@ -11,15 +11,22 @@ Parameters and caches keep the reference's layouts: one kind of layer is a
 is ``groups`` of its block pattern, stacked on a leading ``groups`` axis,
 then an unstacked ``tail`` of the layers past the last whole group.  A
 Python loop over the layers takes the place of ``lax.scan``, over one
-layer's views of each stacked leaf (:func:`unstack`).  The cache is
-written in place: prefill fills a zeroed cache layer by layer, decode
-writes each new entry and state into it (the reference builds new
-arrays).  The hybrid family's attention caches are
-rings of ``min(local_window, cache_len)`` slots.
+layer's views of each stacked leaf (:func:`unstack`); the training
+forward's remat wraps each of the scan's bodies (a layer, or a group) in
+``torch.utils.checkpoint``, as the reference wraps its scan body.  The
+cache is written in place: prefill fills a zeroed cache layer by layer,
+decode writes each new entry and state into it (the reference builds new
+arrays).  The hybrid family's attention caches are rings of
+``min(local_window, cache_len)`` slots.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, moe, ssm
@@ -96,11 +103,11 @@ def _o_proj(o, wo):
     return torch.einsum("bshk,hkd->bsd", o, wo)
 
 
-def _ffn(p, x, cfg):
+def _ffn(p, x, cfg, ctx=None):
     """An attention layer's FFN: the routed experts (moe), with their aux
     loss, or SwiGLU (aux None)."""
     if cfg.family == "moe":
-        return moe.moe_ffn(p, x, cfg)
+        return moe.moe_ffn(p, x, cfg, ctx)
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), None
 
 
@@ -114,7 +121,7 @@ def _window(cfg) -> int:
     return cfg.local_window if cfg.block_pattern else 0
 
 
-def attn_block_fwd(lp, x, cfg, positions, entry):
+def attn_block_fwd(lp, x, cfg, positions, entry, ctx=None):
     """One attention block over full sequences -> (x, the FFN's aux or
     None); writes k/v into the layer's cache views ``entry`` (B,KV,Sc,hd)
     when given.
@@ -132,7 +139,7 @@ def attn_block_fwd(lp, x, cfg, positions, entry):
     else:
         o = attn.prefill_attention(q, kh, vh)
     x = x + _o_proj(o, lp["attn"]["wo"])
-    y, aux = _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    y, aux = _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, ctx)
     x = x + y
     if entry is not None:
         if window and S >= window:
@@ -167,13 +174,14 @@ def rec_block_fwd(lp, x, cfg, entry):
     return x
 
 
-def block_fwd(kind, lp, x, cfg, positions, entry):
-    """One block over full sequences -> (x, aux loss or None)."""
+def block_fwd(kind, lp, x, cfg, positions, entry, ctx=None):
+    """One block over full sequences -> (x, aux loss or None); ``ctx``
+    reaches the moe FFN (:func:`repro_torch.models.moe.moe_ffn`)."""
     if kind == "ssm":
         return ssm_block_fwd(lp, x, cfg, entry), None
     if kind == "rec":
         return rec_block_fwd(lp, x, cfg, entry), None
-    return attn_block_fwd(lp, x, cfg, positions, entry)
+    return attn_block_fwd(lp, x, cfg, positions, entry, ctx)
 
 
 def attn_block_dec(lp, x, cfg, pos, entry):
@@ -224,37 +232,96 @@ def block_dec(kind, lp, x, cfg, pos, entry):
 # The stack
 # ======================================================================
 
-def _layers(params, cfg, cache):
-    """(kind, layer params, layer cache entry or None) in the stack's
-    order: the layers of a ``stack``, or the groups' pattern then the tail."""
+def _units(params, cfg, cache):
+    """The stack's layers as the reference's ``decoder_forward`` runs them:
+    each unit a list of (kind, layer params, layer cache entry or None)
+    and whether it is a scan body (the unit remat wraps).  A ``stack``
+    gives one unit a layer; a hybrid stack one unit a group of its
+    pattern, then one a layer of its tail, which the reference runs
+    outside its scan."""
     if "stack" in params:
         kind = cfg.layer_kinds()[0]
         for i, lp in enumerate(unstack(params["stack"])):
-            yield (kind, lp,
-                   None if cache is None else layer_views(cache["stack"], i))
+            yield [(kind, lp, None if cache is None else
+                    layer_views(cache["stack"], i))], True
         return
     group, G, tail = _groups(cfg)
     groups = unstack(params["groups"])
     for g in range(G):
-        for n, kind in group:
-            yield (kind, groups[g][n],
-                   None if cache is None else
-                   layer_views(cache["groups"][n], g))
+        yield [(kind, groups[g][n],
+                None if cache is None else layer_views(cache["groups"][n], g))
+               for n, kind in group], True
     for n, kind in tail:
-        yield (kind, params["tail"][n],
-               None if cache is None else cache["tail"][n])
+        yield [(kind, params["tail"][n],
+                None if cache is None else cache["tail"][n])], False
 
 
-def decoder_forward(params, x, cfg, positions, cache=None):
+def _layers(params, cfg, cache):
+    """(kind, layer params, layer cache entry or None) in the stack's
+    order: the layers of a ``stack``, or the groups' pattern then the tail."""
+    for blocks, _ in _units(params, cfg, cache):
+        yield from blocks
+
+
+def _run_blocks(blocks, x, cfg, positions, ctx):
+    """One unit of :func:`_units` -> (x, the blocks' aux losses)."""
+    auxs = []
+    for kind, lp, entry in blocks:
+        x, a = block_fwd(kind, lp, x, cfg, positions, entry, ctx)
+        if a is not None:
+            auxs.append(a)
+    return x, auxs
+
+
+# the matmuls' outputs, which ``dots`` keeps (jax's ``dots_saveable``);
+# einsum and ``@`` reach these
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, remat: str):
+    """``fn`` under activation checkpointing, as the reference's
+    ``_remat_wrap``: ``none`` as it is, ``full`` saving nothing (its
+    forward runs again in the backward), ``dots`` saving the matmuls'
+    outputs and recomputing the rest, the hand-written kernels'
+    ``autograd.Function``s included."""
+    if remat == "none":
+        return fn
+    if remat not in ("dots", "full"):
+        raise ValueError(f"remat {remat!r}: expected none, dots or full")
+    kw = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+        if remat == "dots" else {})
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def decoder_forward(params, x, cfg, positions, cache=None, *, ctx=None,
+                    remat: str = "none"):
     """Run every layer over full sequences; fills ``cache`` (from
     :func:`init_cache`, at least S slots) when given.  Returns (x, aux):
     the moe layers' aux losses summed in layer order from an f32 zero (a
     zero for the other families), as the reference's ``(x, aux_total,
-    cache)``."""
+    cache)``.  ``remat`` wraps each scan body of :func:`_units` (training
+    only: a cache is filled without it); ``ctx`` reaches the moe FFN."""
+    if remat != "none" and cache is not None:
+        raise ValueError("remat is for training; prefill fills its cache "
+                         "without it")
+    body = _remat_wrap(_run_blocks, remat)
+    # without remat, one block at a time: a unit's input would otherwise
+    # stay alive through the whole unit (a hybrid group's three blocks)
+    units = (_units(params, cfg, cache) if remat != "none" else
+             (([block], False) for block in _layers(params, cfg, cache)))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, lp, entry in _layers(params, cfg, cache):
-        x, a = block_fwd(kind, lp, x, cfg, positions, entry)
-        if a is not None:
+    for blocks, scanned in units:
+        x, auxs = (body if scanned else _run_blocks)(blocks, x, cfg,
+                                                      positions, ctx)
+        for a in auxs:
             aux = aux + a
     return x, aux
 
@@ -297,3 +364,34 @@ def init_cache(cfg, B: int, cache_len: int, dtype, device):
     return {"groups": {n: entry(k, G, slots=slots) for n, k in group},
             "tail": {n: entry(k, slots=slots) for n, k in tail},
             "pos": pos, "filled": 0}
+
+
+def cache_axes(cfg, ctx=None):
+    """The logical axes of every leaf of :func:`init_cache`'s cache (its
+    host-side ``filled`` count aside), as the reference's ``cache_axes``;
+    with ``ctx.sp_decode`` the full attention caches' slots are
+    ``cache_seq``."""
+    sp = ctx is not None and ctx.sp_decode
+    full_attn = ("layers", "batch", None, "cache_seq" if sp else None, None)
+    win_attn = ("layers", "batch", None, None, None)
+    kinds = cfg.layer_kinds()
+    if len(set(kinds)) == 1:
+        if kinds[0] == "ssm":
+            entry = {"conv": ("layers", "batch", None, None),
+                     "ssm": ("layers", "batch", "ssm_heads", None, None)}
+        else:
+            entry = {"k": full_attn, "v": full_attn}
+        return {"stack": entry, "pos": ("batch",)}
+
+    def one(kind, stacked=True):
+        if kind == "rec":
+            c = {"conv": ("groups", "batch", None, "lru"),
+                 "lru": ("groups", "batch", "lru")}
+        else:
+            c = {"k": win_attn, "v": win_attn}
+        return c if stacked else {k: ax[1:] for k, ax in c.items()}
+
+    group, _, tail = _groups(cfg)
+    return {"groups": {n: one(k) for n, k in group},
+            "tail": {n: one(k, stacked=False) for n, k in tail},
+            "pos": ("batch",)}

@@ -12,8 +12,12 @@ the state's m, v and master tensors in place and returns them in the new
 state (the reference returns new arrays).  At minicpm-2b's size a second
 copy of the f32 state would be another 32.7 GB on an 80 GB card.  The new
 parameters are new tensors, the masters cast to the parameters' dtype
-(round to nearest even for bf16, as XLA casts).  ZeRO-1 sharding belongs
-to the distributed layer, which is not ported yet.
+(round to nearest even for bf16, as XLA casts).
+
+The trees may be one rank's shards: :mod:`repro_torch.distributed.steps`
+runs ``adamw_update`` on the local shards of ZeRO-1 or FSDP state, with a
+``norm_reduce`` that sums each leaf's squares over the ranks so that the
+clip sees the global norm.
 """
 from __future__ import annotations
 
@@ -71,23 +75,27 @@ def init_opt_state(params) -> OptState:
                     tree_map_with_path(lambda _, z: z.clone(), zeros), master)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, reduce=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in flatten order) of each leaf's sum of
-    squares, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in _leaves(tree)))
+    squares, in f32.  ``reduce`` maps the vector of the leaves' sums to the
+    sums to add (a sharded tree's: each summed over the ranks)."""
+    sq = [torch.sum(torch.square(x.float())) for x in _leaves(tree)]
+    if reduce is not None:
+        sq = list(reduce(torch.stack(sq)))
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
-def adamw_update(tc: TrainConfig, state: OptState, grads, params):
+def adamw_update(tc: TrainConfig, state: OptState, grads, params, *,
+                 norm_reduce=None):
     """Returns (new_state, new_params (cast to the parameters' dtype),
     metrics).  m, v and master are updated in place (see the module
-    docstring)."""
+    docstring); ``norm_reduce`` goes to :func:`global_norm`."""
     sched = make_schedule(tc)
     step = state.step + 1
     lr = sched(step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, norm_reduce)
     clip = torch.clamp(torch.full_like(gnorm, tc.grad_clip)
                        / torch.clamp(gnorm, min=1e-12), max=1.0)
 

@@ -138,6 +138,12 @@ def test_fault_case_matches_the_reference(case):
 
 
 def test_the_package_exports_only_what_is_ported():
+    from repro_torch.distributed import context as port_context
     assert port_distributed.Coordinator is port_fault.Coordinator
     assert port_distributed.ElasticTrainer is port_fault.ElasticTrainer
-    assert not hasattr(port_distributed, "DistContext")
+    # the data-parallel half of the distributed layer is ported; the
+    # prefill and decode steps and SP decode attention are not
+    assert port_distributed.DistContext is port_context.DistContext
+    for name in ("build_prefill_step", "build_decode_step",
+                 "sp_decode_attention"):
+        assert not hasattr(port_distributed, name), name
