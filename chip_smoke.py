@@ -199,11 +199,27 @@ Phases, each printing one JSON line:
             recurrentgemma-9b at full width with remat full at 6 layers
             (against remat none within 1e-3), 9 and 12 layers (each peak,
             or the out-of-memory, recorded; no depth is tried after one
-            that ran out).
+            that ran out);
+16. dist_serve: ``repro_torch.distributed.build_prefill_step`` and
+            ``build_decode_step`` at world size 1 (NCCL, a 1 x 1 mesh):
+            full yi-6b (batch 4, prompt 2048) and full mamba2-370m (batch
+            8, prompt 2000), seeded bf16 weights, a prefill and 32 greedy
+            steps through ``LM``, through the steps in fsdp (the same
+            logit and id bits as ``LM``'s) and in tp with sp_decode (yi-6b
+            decodes through ``sp_decode_attention``; logits within 5e-2 of
+            ``LM``'s, ids equal but at near ties), flash 32 and SSD 48
+            launches a prefill; prefill seconds, decode tokens/s and peak
+            memory of each path; and ``sp_decode_attention`` against the
+            plain write and attention at yi-6b's decode shape in bf16.
+
+Every peak of device memory (the serve cells, the train legs, dist_train,
+dist_serve) is printed beside ``launch.memmodel.model_memory``'s terms and
+total for the same cell on a 1 x 1 mesh (``hbm_bytes`` the card's memory)
+and the ratio of the peak to the model.
 
 Then the ``kernels`` line (each kernel's launches summed over the session,
-socket, fleet, gateway, checkpoint, serve, train and dist_train runs, and
-split by run in ``launches_by_path``), and last
+socket, fleet, gateway, checkpoint, serve, train, dist_train and
+dist_serve runs, and split by run in ``launches_by_path``), and last
 ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -2833,6 +2849,10 @@ def phase_serve() -> dict:
               "decode_seconds": out["decode_seconds"],
               "decode_tokens_per_s": out["decode_tokens_per_s"],
               "peak_memory_bytes": out["peak_memory_bytes"],
+              "model_memory": beside_peak(
+                  memory_model(cfg, "prefill", prompt, batch,
+                               max_seq=prompt + GEN),
+                  out["peak_memory_bytes"]),
               "wall_seconds_with_init": wall, "launches": got,
               "ids_sample": ids[0, :8].tolist()})
         del out
@@ -3127,7 +3147,10 @@ def phase_train(tmp: Path) -> dict:
           "steady_tokens_per_s": tokens / steady,
           "split_seconds": steps_split, "traced_step_device": step_device,
           "lr": float(TRAIN_LR),
-          "peak_memory_bytes": peak, "wall_seconds_with_init": wall,
+          "peak_memory_bytes": peak,
+          "model_memory": beside_peak(
+              memory_model(cfg, "train", TRAIN_SEQ, TRAIN_BATCH), peak),
+          "wall_seconds_with_init": wall,
           "launches_per_step": want, "bwd_routes_per_step": want_routes,
           "cli": text.splitlines()})
 
@@ -3231,6 +3254,8 @@ def phase_train(tmp: Path) -> dict:
               "tokens_per_s": [batch * seq / t for t in secs],
               "steady_tokens_per_s": batch * seq / steady,
               "peak_memory_bytes": peak, "allocated_at_start": at_start,
+              "model_memory": beside_peak(
+                  memory_model(cfg, "train", seq, batch), peak),
               "wall_seconds_with_init": wall, "launches_per_step": want,
               "bwd_routes_per_step": want_routes,
               "traced_step_device": {
@@ -3561,6 +3586,9 @@ def phase_dist_train(tmp: Path) -> dict:
             modes[mode] = {
                 "seconds_per_step": [h["seconds"] for h in hist],
                 "peak_memory_bytes": peak, "held_before_steps": held,
+                "model_memory": beside_peak(
+                    memory_model(cfg, "train", TRAIN_SEQ, TRAIN_BATCH,
+                                 mode=mode), peak),
                 "params_alias_the_weights": aliased,
                 "extra_parameter_copies": (peak - held - ref_work) / p_bytes,
                 "param_leaves_bit_equal": len(want),
@@ -3582,6 +3610,9 @@ def phase_dist_train(tmp: Path) -> dict:
               "train_step": {"seconds_per_step": [h["seconds"]
                                                   for h in ref_hist],
                              "peak_memory_bytes": ref_peak,
+                             "model_memory": beside_peak(
+                                 memory_model(cfg, "train", TRAIN_SEQ,
+                                              TRAIN_BATCH), ref_peak),
                              "held_before_steps": ref_held,
                              "again_seconds_per_step": [h["seconds"]
                                                         for h in again],
@@ -3636,10 +3667,15 @@ def phase_dist_train(tmp: Path) -> dict:
                             f"dist_train remat {remat} at {layers} layers: "
                             f"launches {hist[0]['launches']}, expected "
                             f"{expect}")
+                    rpeak = torch.cuda.max_memory_allocated()
                     leg[remat] = {"loss": hist[0]["loss"],
                                   "grad_norm": hist[0]["grad_norm"],
-                                  "peak_memory_bytes":
-                                      torch.cuda.max_memory_allocated(),
+                                  "peak_memory_bytes": rpeak,
+                                  "model_memory": beside_peak(
+                                      memory_model(rcfg, "train",
+                                                   RG_TRAIN_SEQ,
+                                                   RG_TRAIN_BATCH, tc=rtc),
+                                      rpeak),
                                   "launches": hist[0]["launches"]}
                     del params, opt, step
                 leg["fits"] = True
@@ -3669,6 +3705,282 @@ def phase_dist_train(tmp: Path) -> dict:
               "train_phase_in_perf_md": "6 layers, remat none: 76.7 GB "
                                         "peak; 9 and 12 layers ran out of "
                                         "memory (PERF.md section 5)",
+              "seconds": time.perf_counter() - t_phase})
+    finally:
+        dist.destroy_process_group()
+    return path_launches
+
+
+# the distributed serve steps' legs (one card: a 1 x 1 ("data", "model")
+# mesh over NCCL): two serve cells at full width, each through LM, the
+# fsdp steps and the tp steps with sp_decode
+DIST_SERVE_CELLS = (("yi-6b", YI_BATCH, YI_PROMPT),
+                    ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT))
+# the tp leg's bf16 logits against LM's: the bf16 serving tolerance of the
+# CPU tests (tests/test_torch_model.py BF16_TOL); phase_serve_agree holds
+# f32 only
+DIST_SERVE_TOL = 5e-2
+
+
+def card_memory() -> int:
+    import torch
+    return torch.cuda.get_device_properties(0).total_memory
+
+
+def memory_model(cfg, kind: str, seq: int, batch: int, *, mode: str = "tp",
+                 tc=None, max_seq: int | None = None) -> dict:
+    """``launch.memmodel.model_memory`` of one cell on a 1 x 1 ("data",
+    "model") mesh (host arithmetic over the config's spec, nothing
+    allocated), against the card's memory."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import DistContext
+    from repro_torch.launch.memmodel import model_memory
+    from repro_torch.models import LM
+
+    ctx = DistContext.create(cfg, {"data": 1, "model": 1}, mode=mode)
+    lm = LM(cfg, max_seq=max_seq or seq, device="cpu")
+    return model_memory(cfg, ShapeConfig("smoke", kind, seq, batch), ctx,
+                        tc or TrainConfig(), lm, hbm_bytes=card_memory())
+
+
+def beside_peak(mm: dict, peak: int) -> dict:
+    """The model's terms and total beside a measured peak."""
+    return {**mm, "peak_bytes": peak, "peak_over_model": peak / mm["total"]}
+
+
+def phase_dist_serve(tmp: Path) -> dict:
+    """The distributed layer's serve steps
+    (``repro_torch.distributed.build_prefill_step`` and
+    ``build_decode_step``) at world size 1 on the card: NCCL with a
+    ``FileStore`` rendezvous made here, a 1 x 1 ("data", "model") mesh from
+    ``launch.mesh.make_dev_mesh``, as ``dist_train``.  For full yi-6b
+    (batch 4 x prompt 2048) and full mamba2-370m (batch 8 x prompt 2000),
+    seeded bf16 weights (the serve phase's), a prefill and GEN greedy
+    decode steps through three paths:
+    1. ``LM.prefill``/``LM.decode_step``;
+    2. the steps in ``fsdp`` with ``sp_decode=False``: every logit and id
+       the same bits as path 1's;
+    3. the steps in ``tp`` with ``sp_decode`` (yi-6b's decode runs
+       ``sp_decode_attention`` over a ``model`` group of one rank), fed
+       path 1's ids: logits within DIST_SERVE_TOL of path 1's, its own
+       greedy ids equal to path 1's except at near ties of path 1's
+       logits.
+    Each path's prefill must launch each layer's kernel once (flash 32
+    times for yi-6b, SSD 48 times for mamba2-370m), its decode none.
+    Prints each path's prefill seconds, decode tokens/s and peak device
+    memory beside ``model_memory``'s prediction for the prefill and the
+    decode shape (1 x 1 mesh, the path's mode).  Also holds
+    ``sp_decode_attention`` once against the plain cache write and decode
+    attention at yi-6b's decode shape in bf16: caches bit-equal, output
+    within flash's bf16 tolerance.  Returns the kernels' launches of
+    paths 2 and 3."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import (
+        DistContext, build_decode_step, build_prefill_step, distribute_tree,
+        sp_decode_attention,
+    )
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.attention import (
+        cache_write_plain, decode_attention_plain,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for m in lm_kernels():
+        m.reset_launches()
+    path_launches: dict = {}
+
+    def local(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def serve(prefill, decode, drive=None):
+        """prefill() -> (logits, cache); GEN steps of decode(cache, tok) on
+        the greedy ids (or on ``drive``'s) -> each step's logits (kept on
+        the card), the greedy ids, seconds, peak memory and launches of
+        prefill and decode."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = lm_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill()
+        logits = local(logits)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        mid = lm_launches()
+        out, ids = [logits.clone()], []
+        t0 = time.perf_counter()
+        tok = logits.argmax(dim=-1)[:, None]
+        for s in range(GEN):
+            ids.append(tok)
+            logits, cache = decode(cache, tok if drive is None
+                                   else drive[:, s:s + 1])
+            logits = local(logits)
+            out.append(logits.clone())
+            tok = logits.argmax(dim=-1)[:, None]
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        after = lm_launches()
+        del cache
+        return {"logits": out, "ids": torch.cat(ids, dim=1),
+                "prefill_seconds": t_prefill, "decode_seconds": t_decode,
+                "peak_memory_bytes": peak, "held_before": held,
+                "prefill_launches": {k: mid[k] - before[k] for k in mid},
+                "decode_launches": {k: after[k] - mid[k] for k in mid}}
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / "dist-serve-store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_dev_mesh(1, 1, device="cuda")
+        cells = []
+        for arch, batch, prompt in DIST_SERVE_CELLS:
+            cfg = serve_config(arch)
+            total = prompt + GEN
+            pshape = ShapeConfig("smoke", "prefill", prompt, batch)
+            dshape = ShapeConfig("smoke", "decode", total, batch)
+            inputs = TokenPipeline(cfg, pshape, seed=SEED).prefill_batch(0)
+            tokens = torch.from_numpy(inputs["tokens"]).cuda()
+            lm = LM(cfg, max_seq=total, device="cuda")
+            weights = lm.init(SEED, torch.bfloat16)
+            want = expected_launches(cfg, prompt)
+            none = {k: 0 for k in want}
+            legs = {"lm": serve(
+                lambda: lm.prefill(tokens, cache_len=total),
+                lm.decode_step)}
+            for mode, sp in (("fsdp", False), ("tp", True)):
+                ctx = DistContext.create(cfg, mesh, mode=mode, sp_decode=sp)
+                pf, (p_sh, _, _, _) = build_prefill_step(lm, ctx, pshape,
+                                                         cache_len=total)
+                df, _ = build_decode_step(lm, ctx, dshape)
+                params = distribute_tree(weights, ctx, p_sh)
+                leg = serve(lambda: pf(params, {"tokens": tokens}),
+                            lambda c, t: df(params, c, {"token": t}),
+                            drive=None if mode == "fsdp"
+                            else legs["lm"]["ids"])
+                leg["mode"], leg["sp_decode"] = mode, sp
+                legs[mode] = leg
+                for k, n in leg["prefill_launches"].items():
+                    path_launches[k] = path_launches.get(k, 0) + n
+                del params, pf, df
+            for name, leg in legs.items():
+                if leg["prefill_launches"] != want or \
+                        leg["decode_launches"] != none:
+                    raise AssertionError(
+                        f"dist_serve {arch} {name}: prefill launches "
+                        f"{leg['prefill_launches']}, decode "
+                        f"{leg['decode_launches']}; expected {want} and none")
+            ref = legs["lm"]
+            fsdp = legs["fsdp"]
+            if not torch.equal(fsdp["ids"], ref["ids"]) or not all(
+                    a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(fsdp["logits"], ref["logits"])):
+                raise AssertionError(f"dist_serve {arch}: the fsdp steps' "
+                                     f"logits or ids are not LM's bits")
+            tp = legs["tp"]
+            errs, flips = [], []
+            for s, (a, b) in enumerate(zip(tp["logits"], ref["logits"])):
+                a, b = a.float(), b.float()
+                err = (a - b).abs()
+                errs.append(float(err.max()))
+                if bool((err > DIST_SERVE_TOL * (1 + b.abs())).any()):
+                    raise AssertionError(
+                        f"dist_serve {arch} tp: step {s} logits off by "
+                        f"{errs[-1]} (tolerance {DIST_SERVE_TOL})")
+                if s == GEN:
+                    break
+                mine, theirs = a.argmax(dim=-1), b.argmax(dim=-1)
+                for r in torch.nonzero(mine != theirs).ravel().tolist():
+                    gap = float(b[r, theirs[r]] - b[r, mine[r]])
+                    if gap > 2 * DIST_SERVE_TOL * (1 + float(b[r].abs().max())):
+                        raise AssertionError(
+                            f"dist_serve {arch} tp: step {s} row {r} takes "
+                            f"id {int(mine[r])}, LM's {int(theirs[r])}, "
+                            f"{gap} apart in LM's logits")
+                    flips.append({"step": s, "row": r, "gap": gap})
+            ids = ref["ids"]
+            if ids.min() < 0 or ids.max() >= cfg.padded_vocab:
+                raise AssertionError(f"dist_serve {arch}: ids outside "
+                                     f"[0, {cfg.padded_vocab})")
+            mm = {m: {"prefill": memory_model(cfg, "prefill", prompt, batch,
+                                              mode=m, max_seq=total),
+                      "decode": memory_model(cfg, "decode", total, batch,
+                                             mode=m, max_seq=total)}
+                  for m in ("fsdp", "tp")}
+            report = {}
+            for name, leg in legs.items():
+                m = mm["fsdp" if name == "lm" else name]
+                report[name] = {
+                    "prefill_seconds": leg["prefill_seconds"],
+                    "decode_seconds": leg["decode_seconds"],
+                    "decode_tokens_per_s": GEN * batch / leg["decode_seconds"],
+                    "peak_memory_bytes": leg["peak_memory_bytes"],
+                    "held_before": leg["held_before"],
+                    "model_memory": {
+                        k: beside_peak(v, leg["peak_memory_bytes"])
+                        for k, v in m.items()},
+                    "prefill_launches": {k: n for k, n in
+                                         leg["prefill_launches"].items() if n}}
+            report["tp"]["max_abs_logit_err_vs_lm"] = max(errs)
+            report["tp"]["near_tie_id_flips"] = flips
+            report["fsdp"]["same_bits_as_lm"] = True
+            cells.append({"arch": arch, "batch": batch, "prompt_len": prompt,
+                          "gen": GEN, "legs": report,
+                          "ids_sample": ids[0, :8].tolist()})
+            del legs, ref, fsdp, tp, weights, lm
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # sp_decode_attention against the plain write and attention at
+        # yi-6b's decode shape, bf16, a model group of one rank
+        yi = serve_config("yi-6b")
+        hd, total = yi.resolved_head_dim, YI_PROMPT + GEN
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(
+                torch.bfloat16)
+        q = rand(YI_BATCH, 1, yi.num_heads, hd)
+        kc, vc = (rand(YI_BATCH, yi.num_kv_heads, total, hd)
+                  for _ in range(2))
+        nk, nv = (rand(YI_BATCH, 1, yi.num_kv_heads, hd) for _ in range(2))
+        pos = torch.tensor([YI_PROMPT, YI_PROMPT + 7, total - 1, 0],
+                           dtype=torch.int32, device="cuda")[:YI_BATCH]
+        k1, v1 = cache_write_plain(kc.clone(), vc.clone(), nk, nv, pos)
+        want_o = decode_attention_plain(q, k1, v1, pos)
+        ctx = DistContext.create(yi, mesh, mode="tp", sp_decode=True)
+        got_o, k2, v2 = sp_decode_attention(ctx, q, kc.clone(), vc.clone(),
+                                            nk, nv, pos)
+        atol, rtol = TOL[("flash_attention", "bfloat16")]
+        if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+            raise AssertionError("sp_decode_attention: caches differ from "
+                                 "the plain write's")
+        torch.testing.assert_close(got_o.float(), want_o.float(), atol=atol,
+                                   rtol=rtol)
+        sp_check = {"q": list(q.shape), "cache": list(kc.shape),
+                    "dtype": "bfloat16", "tolerance": [atol, rtol],
+                    "max_abs_err": float((got_o.float() - want_o.float())
+                                         .abs().max()),
+                    "caches_bit_equal": True}
+        emit({"phase": "dist_serve", "card": card_line(),
+              "world_size": dist.get_world_size(),
+              "backend": dist.get_backend(),
+              "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+              "dtype": "bfloat16", "tolerance": DIST_SERVE_TOL,
+              "card_memory_bytes": card_memory(), "cells": cells,
+              "sp_decode_attention": sp_check, "launches": path_launches,
               "seconds": time.perf_counter() - t_phase})
     finally:
         dist.destroy_process_group()
@@ -3714,6 +4026,8 @@ def main() -> int:
     phase_train_agree()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         by_path["dist_train"] = phase_dist_train(Path(tmp))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        by_path["dist_serve"] = phase_dist_serve(Path(tmp))
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()
                                  if r["name"] in n}

@@ -1,8 +1,10 @@
-"""The data-parallel train step (port of ``repro/distributed/steps.py``:
-``input_specs`` and ``build_train_step``) on ``torch.distributed``.
+"""The data-parallel train step and the serve steps (port of
+``repro/distributed/steps.py``: ``input_specs``, ``cache_specs``,
+``build_train_step``, ``build_prefill_step`` and ``build_decode_step``) on
+``torch.distributed``.
 
-The reference jits its step over sharded inputs and lets GSPMD place the
-collectives.  Here every rank runs the step on local tensors and moves the
+The reference jits its steps over sharded inputs and lets GSPMD place the
+collectives.  Here every rank runs a step on local tensors and moves the
 data itself:
 
 - the parameters are DTensors at :func:`~.sharding.params_shardings`'
@@ -28,7 +30,7 @@ ranks), not what the reference's GSPMD step holds, which gathers inside
 the layer scan.  A model whose parameters do not fit one rank
 (qwen3-moe-235b-a22b's 470 GB of bf16) cannot run; a gather per layer
 inside ``decoder_forward`` and a reduce-scatter of each layer's gradients
-as the backward reaches it is ROADMAP A10b.
+as the backward reaches it is ROADMAP A10b-3.
 
 Microbatch i is the global batch's rows ``[i B/n, (i+1) B/n)``, as the
 reference reshapes it; each rank takes its block of every microbatch, so a
@@ -37,9 +39,22 @@ world size 1 every collective moves nothing (DTensor keeps the local
 tensor where placements differ only on mesh axes of one rank) and the
 step is ``train_step``'s arithmetic op for op.
 
+The serve steps gather the parameters the same way and run
+``LM.prefill``/``LM.decode_step`` on this rank's rows of the global batch
+(:func:`~.sharding.batch_pspec`) with the context, so a moe layer routes
+the batch group's tokens.  The cache is a tree of DTensors at
+:func:`~.sharding.cache_shardings`' placements (each rank its rows) plus
+the host-side ``filled`` count, which no placement describes; the decode
+step updates the local caches in place.  The logits come out at
+``(batch_pspec, rules["vocab"])``.  With ``ctx.sp_decode`` the full
+attention layers decode through
+:func:`~.decode_attn.sp_decode_attention`.
+
 ``mode="tp"`` with a ``model`` axis above 1 needs tensor-parallel compute
-over that axis, which the port does not have yet (ROADMAP A10b), and
-raises.  The prefill and decode steps wait for the same slice.
+over that axis, which the port does not have yet (ROADMAP A10b-4): every
+step builder raises there.  ``build_decode_step`` in ``fsdp`` with
+``ctx.sp_decode`` raises for a config whose decode reaches
+``sp_decode_attention``, where the reference fails too.
 """
 from __future__ import annotations
 
@@ -55,8 +70,8 @@ from torch.distributed.tensor import zeros as dzeros
 from repro_torch.core.reducer import tree_flatten_with_path, tree_map_with_path
 from repro_torch.distributed.context import DistContext
 from repro_torch.distributed.sharding import (
-    map_tree, axes_tree, batch_pspec, batch_shardings, data_axes,
-    opt_shardings, params_shardings, shapes_tree,
+    map_tree, axes_tree, batch_pspec, batch_shardings, cache_shardings,
+    data_axes, opt_shardings, params_shardings, shapes_tree,
 )
 from repro_torch.models.layers import spec_leaves
 from repro_torch.optim.optimizer import OptState, adamw_update
@@ -86,6 +101,26 @@ def input_specs(cfg, shape, dtype=torch.bfloat16) -> dict:
             out["encoder_frames"] = TensorSpec((B, cfg.encoder_seq,
                                                 cfg.d_model), dtype)
     return out
+
+
+def cache_specs(lm, B: int, cache_len: int, dtype=torch.bfloat16) -> dict:
+    """The cache of ``B`` sequences of ``cache_len`` slots (``LM.init_cache``'s
+    tree without its host-side ``filled`` count) as :class:`TensorSpec`;
+    the shapes come from the ``meta`` device, so nothing is allocated."""
+    from repro_torch.models import encdec, transformer
+    init = encdec.init_cache if lm.cfg.family == "encdec" else \
+        transformer.init_cache
+    cache = init(lm.cfg, B, cache_len, dtype, torch.device("meta"))
+    del cache["filled"]
+    return map_tree(lambda t: TensorSpec(tuple(t.shape), t.dtype), cache)
+
+
+def _check_mode(ctx: DistContext) -> None:
+    if ctx.mode == "tp" and ctx.axes.get("model", 1) > 1:
+        raise NotImplementedError(
+            "mode='tp' with a 'model' axis above 1 needs tensor-parallel "
+            "compute over it, which is not ported yet (ROADMAP A10b-4); use "
+            "mode='fsdp', or a 'model' axis of 1 (data parallel)")
 
 
 # ----------------------------------------------------------------------
@@ -138,11 +173,7 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
     reads its rows).  m, v and master are updated in place, as
     ``adamw_update`` does."""
     cfg = lm.cfg
-    if ctx.mode == "tp" and ctx.axes.get("model", 1) > 1:
-        raise NotImplementedError(
-            "mode='tp' with a 'model' axis above 1 needs tensor-parallel "
-            "compute over it, which is not ported yet (ROADMAP A10b); use "
-            "mode='fsdp', or a 'model' axis of 1 (data parallel with ZeRO-1)")
+    _check_mode(ctx)
     n_micro = max(tc.microbatches, 1)
     B = shape.global_batch
     axes, shapes = axes_tree(lm.spec), shapes_tree(lm.spec)
@@ -242,3 +273,101 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
 
     return step_fn, (p_sh, o_sh, b_sh)
 
+
+
+# ----------------------------------------------------------------------
+# the serve steps
+# ----------------------------------------------------------------------
+
+def _serve_layout(lm, ctx: DistContext, shape):
+    """The serve steps' specs (parameters, batch, cache, logits) and the
+    (first row, rows) of the global batch this rank serves."""
+    B = shape.global_batch
+    specs = (params_shardings(ctx, axes_tree(lm.spec), shapes_tree(lm.spec)),
+             batch_shardings(ctx, input_specs(lm.cfg, shape), B),
+             cache_shardings(ctx, lm.cache_axes(ctx), B),
+             (batch_pspec(ctx, B), ctx.rules.get("vocab")))
+    if batch_pspec(ctx, B) is None:
+        return specs, 0, B
+    group = ctx.batch_group()
+    rows = B // dist.get_world_size(group)
+    return specs, dist.get_rank(group) * rows, rows
+
+
+def _place(ctx: DistContext, t, spec):
+    """This rank's block of an evenly split tensor -> a DTensor at spec."""
+    return DTensor.from_local(t, ctx.mesh, ctx.placements(spec),
+                              run_check=False)
+
+
+def _place_cache(ctx: DistContext, cache: dict, specs: dict) -> dict:
+    """A local cache -> DTensors at ``specs``, ``filled`` kept as it is."""
+    return {**map_tree(lambda t, s: _place(ctx, t, s),
+                       {k: cache[k] for k in specs}, specs),
+            "filled": cache["filled"]}
+
+
+def _reaches_sp_decode(cfg) -> bool:
+    """Whether a decode step runs ``sp_decode_attention`` under
+    ``sp_decode``: any full attention cache (an encdec's self attention,
+    an attention stack without a local window)."""
+    window = cfg.local_window if cfg.block_pattern else 0
+    return cfg.family == "encdec" or (
+        "attn" in cfg.layer_kinds() and not window)
+
+
+def build_prefill_step(lm, ctx: DistContext, shape,
+                       cache_len: int | None = None):
+    """Returns ``(prefill_fn, (param_specs, batch_specs, logits_spec,
+    cache_specs))``.
+
+    ``prefill_fn(params, batch) -> (logits, cache)``: ``params`` DTensors
+    at ``param_specs``, ``batch`` the global prompt batch (``tokens``, a
+    vlm's ``vision_embeds``, an encdec's ``encoder_frames``: the same
+    arrays on every rank; each rank reads its rows); the last position's
+    logits (B, V) a DTensor at ``logits_spec``, the cache of ``cache_len``
+    slots (``shape.seq_len`` by default) DTensors at ``cache_specs`` and
+    its ``filled`` count."""
+    _check_mode(ctx)
+    cache_len = cache_len or shape.seq_len
+    (p_sh, b_sh, c_sh, logits_sh), lo, rows = _serve_layout(lm, ctx, shape)
+
+    @torch.no_grad()
+    def prefill_fn(params, batch):
+        local = {k: v[lo:lo + rows] for k, v in batch.items()}
+        logits, cache = lm.prefill(local.pop("tokens"), cache_len,
+                                   params=gather_tree(params), ctx=ctx,
+                                   **local)
+        return _place(ctx, logits, logits_sh), _place_cache(ctx, cache, c_sh)
+
+    return prefill_fn, (p_sh, b_sh, logits_sh, c_sh)
+
+
+def build_decode_step(lm, ctx: DistContext, shape):
+    """Returns ``(decode_fn, (param_specs, cache_specs, batch_specs,
+    logits_spec))``.
+
+    ``decode_fn(params, cache, batch) -> (logits, cache)``: ``cache`` as
+    :func:`build_prefill_step` returns it (updated in place and returned
+    with its ``pos`` and ``filled`` advanced), ``batch["token"]`` the
+    global (B, 1) tokens."""
+    _check_mode(ctx)
+    cfg = lm.cfg
+    if ctx.mode == "fsdp" and ctx.sp_decode and _reaches_sp_decode(cfg):
+        raise ValueError(
+            f"{cfg.name}: a decode step in mode='fsdp' with sp_decode "
+            f"splits the cache's slots over 'model', which fsdp's batch rule "
+            f"already splits the rows over (the reference fails there too, "
+            f"with DuplicateSpecError); create the context with "
+            f"sp_decode=False")
+    (p_sh, b_sh, c_sh, logits_sh), lo, rows = _serve_layout(lm, ctx, shape)
+
+    @torch.no_grad()
+    def decode_fn(params, cache, batch):
+        local = tree_map_with_path(
+            lambda _, t: t.to_local() if isinstance(t, DTensor) else t, cache)
+        logits, local = lm.decode_step(local, batch["token"][lo:lo + rows],
+                                       params=gather_tree(params), ctx=ctx)
+        return _place(ctx, logits, logits_sh), _place_cache(ctx, local, c_sh)
+
+    return decode_fn, (p_sh, c_sh, b_sh, logits_sh)

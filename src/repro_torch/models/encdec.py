@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.decode_attn import sp_decode_attention
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import P, embed_spec, rms_norm, stack_spec, swiglu
 from repro_torch.models.transformer import _o_proj, layer_views, mlp_spec, unstack
@@ -101,16 +102,23 @@ def decoder_forward(params, x, enc_out, cfg, positions, cache=None):
     return x
 
 
-def decoder_decode(params, x, cfg, pos, cache):
+def decoder_decode(params, x, cfg, pos, cache, *, ctx=None):
     """One-token decode; cache entries per layer: self_k/self_v
-    (B,KV,S,hd), written in place, and cross_k/cross_v (B,KV,Senc,hd)."""
+    (B,KV,S,hd), written in place, and cross_k/cross_v (B,KV,Senc,hd).
+    With ``ctx.sp_decode`` the self attention is ``sp_decode_attention``,
+    as in the reference."""
     for i, lp in enumerate(unstack(params["decoder"])):
         c = layer_views(cache["stack"], i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["attn"], h, cfg, pos[:, None])
-        kc, vc = attn.cache_write_plain(c["self_k"], c["self_v"], k, v, pos)
-        x = x + _o_proj(attn.decode_attention_plain(q, kc, vc, pos),
-                        lp["attn"]["wo"])
+        if ctx is not None and ctx.sp_decode:
+            o, _, _ = sp_decode_attention(ctx, q, c["self_k"], c["self_v"],
+                                          k, v, pos)
+        else:
+            kc, vc = attn.cache_write_plain(c["self_k"], c["self_v"], k, v,
+                                            pos)
+            o = attn.decode_attention_plain(q, kc, vc, pos)
+        x = x + _o_proj(o, lp["attn"]["wo"])
 
         hx = rms_norm(x, lp["lnx"], cfg.norm_eps)
         qx = torch.einsum("bsd,dhk->bshk", hx, lp["xattn"]["wq"])

@@ -12,12 +12,16 @@ with cross attention).
     logits, cache = lm.prefill(tokens, cache_len=S + gen,
                                vision_embeds=..., encoder_frames=...)
     logits, cache = lm.decode_step(cache, token)
+    logits, cache = lm.prefill(tokens, params=params, ctx=ctx)  # serve steps
+    logits, cache = lm.decode_step(cache, token, params=params, ctx=ctx)
 
 The parameters live on the LM (``lm.params``, the reference's tree of
 stacked leaves).  ``loss`` and ``forward`` take an explicit parameter tree
 (``lm.params`` by default), so that autograd sees the leaves an optimizer
 owns (:mod:`repro_torch.launch.train`); ``prefill`` and ``decode_step``
-serve and build no autograd graph.  Prefill attention, the forward SSD
+take one too, and a ``DistContext`` (:mod:`repro_torch.distributed.steps`'
+serve steps pass this rank's gathered parameters and its rows), and serve
+without building an autograd graph.  Prefill attention, the forward SSD
 scan and the RG-LRU scan go through the hand-written CUDA kernels on a
 card, their plain versions on the CPU.  Under grad on a card, attention
 and both scans run their forward kernels and their hand-written backward
@@ -118,18 +122,19 @@ class LM:
         return logits_from_embed(
             x, params["embed"] if self.cfg.tie_embeddings else params["w_out"])
 
-    def _prompt_cache(self, tokens, cache_len, vision_embeds, encoder_frames):
-        """A cache for the whole prompt: a vlm's counts its patches as well
-        as its text, an encdec's cross K/V hold the frames given."""
+    def _prompt_cache(self, tokens, cache_len, vision_embeds, encoder_frames,
+                      dtype):
+        """A cache for the whole prompt, in ``dtype``: a vlm's counts its
+        patches as well as its text, an encdec's cross K/V hold the frames
+        given."""
         B, S = tokens.shape
         if self.cfg.family == "vlm" and vision_embeds is not None:
             S += vision_embeds.shape[1]
         slots = max(cache_len or S, S)
         if self.cfg.family == "encdec" and encoder_frames is not None:
-            return encdec.init_cache(self.cfg, B, slots, self.dtype,
-                                     self.device,
+            return encdec.init_cache(self.cfg, B, slots, dtype, self.device,
                                      enc_len=encoder_frames.shape[1])
-        return self.init_cache(B, slots)
+        return self.init_cache(B, slots, dtype)
 
     def forward(self, tokens, *, params=None, want_cache: bool = False,
                 cache_len: int | None = None, vision_embeds=None,
@@ -140,7 +145,8 @@ class LM:
         default).  Returns (logits (B,S_total,V), cache or None)."""
         params = self.params if params is None else params
         cache = (self._prompt_cache(tokens, cache_len, vision_embeds,
-                                    encoder_frames) if want_cache else None)
+                                    encoder_frames, params["embed"].dtype)
+                 if want_cache else None)
         x, _ = self._hidden(params, tokens, cache, vision_embeds,
                             encoder_frames)
         return self._logits(params, x), cache
@@ -173,23 +179,33 @@ class LM:
 
     @torch.no_grad()
     def prefill(self, tokens, cache_len: int | None = None, *,
-                vision_embeds=None, encoder_frames=None):
+                vision_embeds=None, encoder_frames=None, params=None,
+                ctx=None):
         """Process a prompt; returns (last-position logits (B,V), cache).
-        Only the last position goes through the logits product."""
+        Only the last position goes through the logits product.  ``params``
+        (``self.params`` by default) and ``ctx`` as the reference's
+        ``LM.prefill(params, batch, ctx)`` takes them: with a
+        ``DistContext`` whose batch group has several ranks (this rank's
+        rows of a split batch), the moe layers route the group's tokens."""
+        params = self.params if params is None else params
         cache = self._prompt_cache(tokens, cache_len, vision_embeds,
-                                   encoder_frames)
-        x, _ = self._hidden(self.params, tokens, cache, vision_embeds,
-                            encoder_frames)
-        return self._logits(self.params, x[:, -1]), cache
+                                   encoder_frames, params["embed"].dtype)
+        x, _ = self._hidden(params, tokens, cache, vision_embeds,
+                            encoder_frames, ctx)
+        return self._logits(params, x[:, -1]), cache
 
     @torch.no_grad()
-    def decode_step(self, cache, token):
+    def decode_step(self, cache, token, *, params=None, ctx=None):
         """One new token (B,1); returns (logits (B,V), cache), the cache
         updated in place.  Raises ``IndexError`` when a full kv cache has
         no slot left (the reference clamps and overwrites the last slot);
         the check reads the cache's host-side count, not the device's
         ``pos``.  A window cache (the hybrid family's) is a ring and never
-        runs out."""
+        runs out.  ``params`` and ``ctx`` as :meth:`prefill`; with
+        ``ctx.sp_decode`` the full attention layers run
+        ``sp_decode_attention`` over the cache's slots on the ``model``
+        ranks, as the reference's decode does."""
+        params = self.params if params is None else params
         filled = cache["filled"]
         stack = cache.get("stack", {})
         kv = stack.get("k", stack.get("self_k"))
@@ -198,18 +214,19 @@ class LM:
                              f"cache of {kv.shape[3]} slots")
         token = torch.as_tensor(token, device=self.device).long()
         pos = cache["pos"]
-        x = embed_lookup(self.params["embed"], token)
+        x = embed_lookup(params["embed"], token)
         if self.cfg.family == "encdec":
             at = pos.clamp(0, self.max_seq - 1).long()
-            x = x + self.params["dec_pos"][at][:, None, :].to(x.dtype)
-            x = encdec.decoder_decode(self.params, x, self.cfg, pos, cache)
+            x = x + params["dec_pos"][at][:, None, :].to(x.dtype)
+            x = encdec.decoder_decode(params, x, self.cfg, pos, cache,
+                                      ctx=ctx)
         else:
-            x = transformer.decoder_decode(self.params["decoder"], x,
-                                           self.cfg, pos, cache)
-        x = rms_norm(x, self.params["ln_f"], self.cfg.norm_eps)
+            x = transformer.decoder_decode(params["decoder"], x, self.cfg,
+                                           pos, cache, ctx=ctx)
+        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         cache["pos"] = pos + 1
         cache["filled"] = filled + 1
-        return self._logits(self.params, x)[:, 0], cache
+        return self._logits(params, x)[:, 0], cache
 
     def init_cache(self, B: int, cache_len: int, dtype=None) -> dict:
         """Zeros cache; ``dtype`` defaults to the parameters' (a prefill

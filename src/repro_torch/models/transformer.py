@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from repro_torch.distributed.decode_attn import sp_decode_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, moe, ssm
 from repro_torch.models.layers import P, rms_norm, stack_spec, swiglu
@@ -184,18 +185,26 @@ def block_fwd(kind, lp, x, cfg, positions, entry, ctx=None):
     return attn_block_fwd(lp, x, cfg, positions, entry, ctx)
 
 
-def attn_block_dec(lp, x, cfg, pos, entry):
+def attn_block_dec(lp, x, cfg, pos, entry, ctx=None):
+    """One attention block, one token; the reference's branch order: a
+    local window's ring, else ``sp_decode_attention`` when ``ctx`` asks
+    for sequence-parallel decode, else the plain cache write and
+    attention.  ``ctx`` also reaches the moe FFN."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(lp["attn"], h, cfg, pos[:, None])
     window = _window(cfg)
     if window:
         kc, vc = attn.cache_write_window(entry["k"], entry["v"], k, v, pos)
         o = attn.decode_attention_window(q, kc, vc, pos, window=window)
+    elif ctx is not None and ctx.sp_decode:
+        o, _, _ = sp_decode_attention(ctx, q, entry["k"], entry["v"], k, v,
+                                      pos)
     else:
         kc, vc = attn.cache_write_plain(entry["k"], entry["v"], k, v, pos)
         o = attn.decode_attention_plain(q, kc, vc, pos)
     x = x + _o_proj(o, lp["attn"]["wo"])
-    return x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
+    return x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
+                    ctx)[0]
 
 
 def ssm_block_dec(lp, x, cfg, entry):
@@ -220,12 +229,12 @@ def rec_block_dec(lp, x, cfg, entry):
                       lp["mlp"]["w_down"])
 
 
-def block_dec(kind, lp, x, cfg, pos, entry):
+def block_dec(kind, lp, x, cfg, pos, entry, ctx=None):
     if kind == "ssm":
         return ssm_block_dec(lp, x, cfg, entry)
     if kind == "rec":
         return rec_block_dec(lp, x, cfg, entry)
-    return attn_block_dec(lp, x, cfg, pos, entry)
+    return attn_block_dec(lp, x, cfg, pos, entry, ctx)
 
 
 # ======================================================================
@@ -326,10 +335,12 @@ def decoder_forward(params, x, cfg, positions, cache=None, *, ctx=None,
     return x, aux
 
 
-def decoder_decode(params, x, cfg, pos, cache):
-    """One-token decode through the stack, updating ``cache`` in place."""
+def decoder_decode(params, x, cfg, pos, cache, *, ctx=None):
+    """One-token decode through the stack, updating ``cache`` in place;
+    ``ctx`` reaches the attention blocks (:func:`attn_block_dec`) and the
+    moe FFN."""
     for kind, lp, entry in _layers(params, cfg, cache):
-        x = block_dec(kind, lp, x, cfg, pos, entry)
+        x = block_dec(kind, lp, x, cfg, pos, entry, ctx)
     return x
 
 
