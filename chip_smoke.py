@@ -209,8 +209,13 @@ Phases, each printing one JSON line:
             decodes through ``sp_decode_attention``; logits within 5e-2 of
             ``LM``'s, ids equal but at near ties), flash 32 and SSD 48
             launches a prefill; prefill seconds, decode tokens/s and peak
-            memory of each path; and ``sp_decode_attention`` against the
-            plain write and attention at yi-6b's decode shape in bf16.
+            memory of each path; full qwen2-moe-a2.7b (batch 4, prompt
+            2048) through ``LM`` and through the tp steps with the local
+            routing (``moe_impl="shardmap"``, 24 moe layers a step each
+            through ``moe_ffn_shardmap``): the same logit and id bits as
+            ``LM``'s, flash 24 launches a prefill, the leg's seconds; and
+            ``sp_decode_attention`` against the plain write and attention
+            at yi-6b's decode shape in bf16.
 
 Every peak of device memory (the serve cells, the train legs, dist_train,
 dist_serve) is printed beside ``launch.memmodel.model_memory``'s terms and
@@ -3720,6 +3725,8 @@ DIST_SERVE_CELLS = (("yi-6b", YI_BATCH, YI_PROMPT),
 # CPU tests (tests/test_torch_model.py BF16_TOL); phase_serve_agree holds
 # f32 only
 DIST_SERVE_TOL = 5e-2
+# the local-routing moe leg: LM, then the tp steps with moe_impl="shardmap"
+DIST_SERVE_MOE = ("qwen2-moe-a2.7b", MOE_BATCH, MOE_PROMPT)
 
 
 def card_memory() -> int:
@@ -3770,7 +3777,15 @@ def phase_dist_serve(tmp: Path) -> dict:
     times for yi-6b, SSD 48 times for mamba2-370m), its decode none.
     Prints each path's prefill seconds, decode tokens/s and peak device
     memory beside ``model_memory``'s prediction for the prefill and the
-    decode shape (1 x 1 mesh, the path's mode).  Also holds
+    decode shape (1 x 1 mesh, the path's mode).  Then full qwen2-moe-a2.7b
+    (``DIST_SERVE_MOE``) through ``LM`` and through the steps in ``tp``
+    without ``sp_decode`` and with ``ctx.extra["moe_impl"] = "shardmap"``
+    (``models/moe.py`` ``moe_ffn_shardmap``, local routing): at world size
+    1 the layout is EP with every expert on the rank and both capacity
+    formulas give 688 (prefill) and 8 (decode), so every logit and id must
+    be ``LM``'s bits; every moe layer of the step leg's prefill and decode
+    steps must go through ``moe_ffn_shardmap`` (24 a step) and ``LM``'s
+    none; flash 24 launches a prefill, none a decode.  Also holds
     ``sp_decode_attention`` once against the plain cache write and decode
     attention at yi-6b's decode shape in bf16: caches bit-equal, output
     within flash's bf16 tolerance.  Returns the kernels' launches of
@@ -3943,6 +3958,8 @@ def phase_dist_serve(tmp: Path) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
 
+        moe_cell = dist_serve_shardmap(mesh, serve, path_launches)
+
         # sp_decode_attention against the plain write and attention at
         # yi-6b's decode shape, bf16, a model group of one rank
         yi = serve_config("yi-6b")
@@ -3980,11 +3997,130 @@ def phase_dist_serve(tmp: Path) -> dict:
               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
               "dtype": "bfloat16", "tolerance": DIST_SERVE_TOL,
               "card_memory_bytes": card_memory(), "cells": cells,
+              "shardmap_cell": moe_cell,
               "sp_decode_attention": sp_check, "launches": path_launches,
               "seconds": time.perf_counter() - t_phase})
     finally:
         dist.destroy_process_group()
     return path_launches
+
+
+def dist_serve_shardmap(mesh, serve, path_launches: dict) -> dict:
+    """``phase_dist_serve``'s local-routing leg (its docstring): full
+    ``DIST_SERVE_MOE`` through ``LM`` and the tp steps with
+    ``moe_impl="shardmap"`` on ``mesh``; ``serve`` is the phase's helper
+    that runs a prefill and the greedy decode steps.
+    Adds the step leg's prefill launches to ``path_launches``; returns the
+    leg's report."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import (
+        DistContext, build_decode_step, build_prefill_step, distribute_tree,
+    )
+    from repro_torch.models import LM
+    from repro_torch.models import moe
+
+    t_leg = time.perf_counter()
+    arch, batch, prompt = DIST_SERVE_MOE
+    cfg = serve_config(arch)
+    total = prompt + GEN
+    capacities = {}
+    for kind, tokens in (("prefill", batch * prompt), ("decode", batch)):
+        local, glob = moe.shardmap_capacity(tokens, cfg), \
+            moe._capacity(tokens, cfg)
+        if local != glob:
+            raise AssertionError(f"dist_serve {arch}: {kind} capacities "
+                                 f"{local} (shardmap) and {glob} differ")
+        capacities[kind] = local
+    pshape = ShapeConfig("smoke", "prefill", prompt, batch)
+    dshape = ShapeConfig("smoke", "decode", total, batch)
+    tokens = torch.from_numpy(TokenPipeline(cfg, pshape, seed=SEED)
+                              .prefill_batch(0)["tokens"]).cuda()
+    lm = LM(cfg, max_seq=total, device="cuda")
+    weights = lm.init(SEED, torch.bfloat16)
+    want = expected_launches(cfg, prompt)
+    if want != SERVE_LAUNCHES[arch]:
+        raise AssertionError(f"dist_serve {arch}: expected launches {want}")
+    none = {k: 0 for k in want}
+    calls = [0]
+    real = moe.moe_ffn_shardmap
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    moe.moe_ffn_shardmap = counted
+    try:
+        legs = {"lm": serve(lambda: lm.prefill(tokens, cache_len=total),
+                            lm.decode_step)}
+        legs["lm"]["shardmap_calls"], calls[0] = calls[0], 0
+        ctx = DistContext.create(cfg, mesh, mode="tp", sp_decode=False)
+        ctx.extra["moe_impl"] = "shardmap"
+        if ctx.rules["expert_mode"] != "ep":
+            raise AssertionError(f"dist_serve {arch}: expert mode "
+                                 f"{ctx.rules['expert_mode']}, expected ep")
+        pf, (p_sh, _, _, _) = build_prefill_step(lm, ctx, pshape,
+                                                 cache_len=total)
+        df, _ = build_decode_step(lm, ctx, dshape)
+        params = distribute_tree(weights, ctx, p_sh)
+        legs["shardmap"] = serve(lambda: pf(params, {"tokens": tokens}),
+                                 lambda c, t: df(params, c, {"token": t}))
+        legs["shardmap"]["shardmap_calls"] = calls[0]
+        del params, pf, df
+    finally:
+        moe.moe_ffn_shardmap = real
+    layers = cfg.layer_kinds().count("attn")
+    for name, n in (("lm", 0), ("shardmap", layers * (1 + GEN))):
+        leg = legs[name]
+        if leg["shardmap_calls"] != n:
+            raise AssertionError(f"dist_serve {arch} {name}: "
+                                 f"{leg['shardmap_calls']} moe_ffn_shardmap "
+                                 f"calls, expected {n}")
+        if leg["prefill_launches"] != want or leg["decode_launches"] != none:
+            raise AssertionError(
+                f"dist_serve {arch} {name}: prefill launches "
+                f"{leg['prefill_launches']}, decode {leg['decode_launches']};"
+                f" expected {want} and none")
+    for k, n in legs["shardmap"]["prefill_launches"].items():
+        path_launches[k] = path_launches.get(k, 0) + n
+    ref, got = legs["lm"], legs["shardmap"]
+    if not torch.equal(got["ids"], ref["ids"]) or not all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got["logits"], ref["logits"])):
+        raise AssertionError(f"dist_serve {arch}: the shardmap steps' logits "
+                             f"or ids are not LM's bits")
+    ids = ref["ids"]
+    if ids.min() < 0 or ids.max() >= cfg.padded_vocab:
+        raise AssertionError(f"dist_serve {arch}: ids outside "
+                             f"[0, {cfg.padded_vocab})")
+    mm = {"prefill": memory_model(cfg, "prefill", prompt, batch,
+                                  max_seq=total),
+          "decode": memory_model(cfg, "decode", total, batch,
+                                 max_seq=total)}
+    report = {name: {
+        "prefill_seconds": leg["prefill_seconds"],
+        "decode_seconds": leg["decode_seconds"],
+        "decode_tokens_per_s": GEN * batch / leg["decode_seconds"],
+        "peak_memory_bytes": leg["peak_memory_bytes"],
+        "held_before": leg["held_before"],
+        "model_memory": {k: beside_peak(v, leg["peak_memory_bytes"])
+                         for k, v in mm.items()},
+        "moe_ffn_shardmap_calls": leg["shardmap_calls"],
+        "prefill_launches": {k: n for k, n in leg["prefill_launches"].items()
+                             if n}} for name, leg in legs.items()}
+    report["shardmap"]["same_bits_as_lm"] = True
+    del legs, ref, got, weights, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "batch": batch, "prompt_len": prompt, "gen": GEN,
+            "mode": "tp", "moe_impl": "shardmap", "sp_decode": False,
+            "expert_mode": "ep", "capacity": capacities, "legs": report,
+            "ids_sample": ids[0, :8].tolist(),
+            "seconds": time.perf_counter() - t_leg}
 
 
 def main() -> int:

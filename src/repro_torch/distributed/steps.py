@@ -34,15 +34,19 @@ as the backward reaches it is ROADMAP A10b-3.
 
 Microbatch i is the global batch's rows ``[i B/n, (i+1) B/n)``, as the
 reference reshapes it; each rank takes its block of every microbatch, so a
-moe layer routes the same tokens together as the reference does.  At
-world size 1 every collective moves nothing (DTensor keeps the local
-tensor where placements differ only on mesh axes of one rank) and the
-step is ``train_step``'s arithmetic op for op.
+moe layer routes the same tokens together as the reference does: the
+microbatch's global tokens, or with ``ctx.extra["moe_impl"] ==
+"shardmap"`` this rank's own rows of it (``models/moe.py``
+``moe_ffn_shardmap``, local routing).  At world size 1 every collective
+moves nothing (DTensor keeps the local tensor where placements differ
+only on mesh axes of one rank) and the step is ``train_step``'s
+arithmetic op for op (with ``shardmap``, the local routing's op for op).
 
 The serve steps gather the parameters the same way and run
 ``LM.prefill``/``LM.decode_step`` on this rank's rows of the global batch
 (:func:`~.sharding.batch_pspec`) with the context, so a moe layer routes
-the batch group's tokens.  The cache is a tree of DTensors at
+the batch group's tokens (under ``shardmap``, this rank's).  The cache is
+a tree of DTensors at
 :func:`~.sharding.cache_shardings`' placements (each rank its rows) plus
 the host-side ``filled`` count, which no placement describes; the decode
 step updates the local caches in place.  The logits come out at
@@ -190,7 +194,10 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
         raise ValueError(f"a batch of {B} rows in {n_micro} microbatches "
                          f"does not split over {n_ranks} ranks")
     rows = B // n_micro // n_ranks
-    loss_ctx = ctx if group is not None else None
+    # the context reaches the moe layers where the batch is split, and
+    # always under local routing, whose capacity is its own
+    loss_ctx = (ctx if group is not None
+                or ctx.extra.get("moe_impl") == "shardmap" else None)
     # a gradient is the mean over the ranks that split the batch
     batch_axes = set(data_axes(ctx))
     grad_pl = tuple(Partial("avg") if group is not None and a in batch_axes

@@ -1,8 +1,9 @@
 """The port's data-parallel train step (``repro_torch.distributed.steps``
 ``build_train_step``, FSDP and ZeRO-1 on ``torch.distributed``) on gloo
-ranks on the CPU, against the reference's single-device step.
+ranks on the CPU, against the reference's single-device step, and its moe
+case also against the reference's sharded step.
 
-The reference's sharded step does not run under the installed jax, so the
+The test process keeps its one CPU device (``tests/conftest.py``), so the
 parent computes the reference's own ``build_train_step`` on a 1 x 1 mesh of
 its one CPU device (``jax.value_and_grad(lm.loss)`` over the reference's
 microbatches, then ``adamw_update``) for every case: reduced dense, ssm,
@@ -10,6 +11,12 @@ hybrid, moe, vlm and encdec configs in f32, 1 and 2 microbatches, a global
 batch of 8 x 32 tokens, two steps.  The moe config's capacity factor is cut
 to 0.5, so routing the global tokens and routing each rank's tokens drop
 different tokens (``test_the_moe_case_drops_tokens_by_global_routing``).
+Meanwhile a process of its own with 8 host devices
+(``tests/_jax_sharded_ref.py``) runs the reference's sharded
+``build_train_step`` of the moe cases on (2, 1) and (4, 1) meshes with
+``Auto`` axis types (on the default Explicit axes it fails under jax 0.9.0,
+ROADMAP queue C): the GSPMD program, which routes each microbatch's global
+tokens, as the port's tp runs must.
 It writes the weights and batches into an ``.npz``; one spawn a mesh then
 starts ``tests/_torch_dist_worker.py`` once a rank (torch and the port
 only, a ``FileStore`` rendezvous in the test's own directory, every
@@ -34,6 +41,7 @@ would move an element (2 lr a step).  Where the gradients are the same
 bits, the 1e-6 alone holds (``tests/test_torch_train.py``), and on the
 one-rank mesh the step is ``train_step``'s, bit for bit.
 """
+import functools
 import json
 import os
 import subprocess
@@ -74,6 +82,9 @@ MESHES = {"2x1-tp": ((2, 1), "tp", "none"),
           "2x2-fsdp": ((2, 2), "fsdp", "dots"),
           "1x1-fsdp": ((1, 1), "fsdp", "none")}
 CASES = [worker.case_key(a, mb) for a, mb in worker.CASES]
+MOE_CASES = [(a, mb) for a, mb in worker.CASES if a == "qwen2-moe-a2.7b"]
+SHARDED = ("2x1-tp", "4x1-tp")     # the meshes the sharded reference runs
+SHARDED_REF = Path(__file__).resolve().parent / "_jax_sharded_ref.py"
 LOSS_TOL = 1e-5
 GRAD_TOL = {"mamba2-370m": 1e-3}
 DEFAULT_GRAD_TOL = 1e-4
@@ -102,7 +113,13 @@ def reference(tmp_path_factory):
     cases' weights and batches the workers read."""
     mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
     inputs, want = {}, {}
-    for arch, mb in worker.CASES:
+    tmp = tmp_path_factory.mktemp("dist-cases")
+    sharded = None
+    # the moe cases first: the sharded reference starts once their inputs
+    # are written and runs beside the other cases
+    for arch, mb in sorted(worker.CASES, key=lambda c: c not in MOE_CASES):
+        if sharded is None and (arch, mb) not in MOE_CASES:
+            sharded = _start_sharded_reference(inputs, tmp)
         key = worker.case_key(arch, mb)
         cfg = worker.config(arch, ref_config)
         lm = RefLM(cfg, max_seq=worker.SEQ)
@@ -130,9 +147,63 @@ def reference(tmp_path_factory):
         got["master2"] = _np_leaves(opt.master)
         got["params2"] = _np_leaves(params)
         want[key] = got
-    path = tmp_path_factory.mktemp("dist-cases") / "cases.npz"
+    if sharded is None:
+        sharded = _start_sharded_reference(inputs, tmp)
+    path = tmp / "cases.npz"
     np.savez(path, **inputs)
-    return path, want
+    return path, want, _sharded_results(sharded, tmp)
+
+
+def _start_sharded_reference(inputs: dict, tmp: Path):
+    """Start the reference's sharded ``build_train_step`` of the moe cases
+    (gspmd, no remat) on every tp mesh of ``SHARDED``, from the moe cases'
+    weights and batches in ``inputs``."""
+    np.savez(tmp / "moe-cases.npz", **{
+        k: v for k, v in inputs.items()
+        if any(k.startswith(worker.case_key(*c) + "|") for c in MOE_CASES)})
+    jobs = [{"kind": "train", "key": f"{mesh}|{worker.case_key(arch, mb)}",
+             "inputs": worker.case_key(arch, mb), "arch": arch,
+             "replace": {"capacity_factor": worker.MOE_CAPACITY_FACTOR},
+             "mesh": list(MESHES[mesh][0]), "microbatches": mb,
+             "seq": worker.SEQ, "batch": worker.BATCH, "train": worker.TRAIN}
+            for mesh in SHARDED for arch, mb in MOE_CASES]
+    (tmp / "jobs.json").write_text(json.dumps(jobs))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    log = open(tmp / "sharded.log", "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, str(SHARDED_REF), "--jobs",
+             str(tmp / "jobs.json"), "--inputs", str(tmp / "moe-cases.npz"),
+             "--out", str(tmp / "sharded.npz")],
+            stdout=log, stderr=subprocess.STDOUT, env=env)
+    finally:
+        log.close()
+
+
+def _sharded_results(proc, tmp: Path) -> dict:
+    """The sharded reference's outputs: {mesh: {case: {"loss": [...],
+    "grad_norm": [...], "lr": [...], "m1": leaves, "master2": ...,
+    "params2": ...}}}."""
+    try:
+        proc.wait(timeout=SPAWN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+    assert proc.returncode == 0, (tmp / "sharded.log").read_text()[-6000:]
+    res = dict(np.load(tmp / "sharded.npz"))
+    out: dict = {}
+    for mesh in SHARDED:
+        for arch, mb in MOE_CASES:
+            case = worker.case_key(arch, mb)
+            key = f"{mesh}|{case}"
+            got = {k: [float(res[f"{key}|{k}{s}"]) for s in range(2)]
+                   for k in ("loss", "grad_norm", "lr")}
+            for name in ("m1", "master2", "params2"):
+                got[name] = {k.split("|", 3)[3]: v for k, v in res.items()
+                             if k.startswith(f"{key}|{name}|")}
+            out.setdefault(mesh, {})[case] = got
+    return out
 
 
 def _spawn(mesh: str, cases: Path, tmp: Path) -> dict:
@@ -171,11 +242,20 @@ def _spawn(mesh: str, cases: Path, tmp: Path) -> dict:
     return {"result": res, "bytes": nbytes, "world": world}
 
 
+@pytest.fixture(scope="module")
+def spawned(reference, tmp_path_factory):
+    """One spawn of a mesh's ranks over every case, run once for all the
+    tests that read it."""
+    @functools.lru_cache(maxsize=None)
+    def get(mesh):
+        return _spawn(mesh, reference[0],
+                      tmp_path_factory.mktemp(f"dist-{mesh}"))
+    return get
+
+
 @pytest.fixture(scope="module", params=list(MESHES))
-def run(request, reference, tmp_path_factory):
-    """One spawn of the mesh's ranks over every case."""
-    tmp = tmp_path_factory.mktemp(f"dist-{request.param}")
-    return request.param, _spawn(request.param, reference[0], tmp)
+def run(request, spawned):
+    return request.param, spawned(request.param)
 
 
 def _close(got: dict, want: dict, tol: float, what: str, extra=0.0):
@@ -211,6 +291,34 @@ def test_two_steps_match_the_single_device_reference(run, reference, case):
            f"{mesh} {case} params after step 2", flip)
     if MESHES[mesh][0] == (1, 1) and case.endswith("/mb1"):
         assert res[f"{case}|same_bits_as_train_step"] == 1.0
+
+
+@pytest.mark.parametrize("mesh", SHARDED)
+@pytest.mark.parametrize("case", [worker.case_key(*c) for c in MOE_CASES])
+def test_the_moe_case_matches_the_sharded_reference(spawned, reference,
+                                                    mesh, case):
+    """The tp runs' moe case (global routing) against the reference's own
+    sharded step on the same mesh, at the tolerances above: the port's
+    global routing under data parallelism is the GSPMD program's."""
+    res, want = spawned(mesh)["result"], reference[2][mesh][case]
+    for s in range(2):
+        np.testing.assert_allclose(res[f"{case}|loss{s}"], want["loss"][s],
+                                   rtol=LOSS_TOL, atol=LOSS_TOL)
+        np.testing.assert_allclose(res[f"{case}|grad_norm{s}"],
+                                   want["grad_norm"][s], rtol=NORM_RTOL)
+        np.testing.assert_allclose(res[f"{case}|lr{s}"], want["lr"][s],
+                                   rtol=1e-6)
+
+    def leaves(name):
+        return {k.split("|", 2)[2]: v for k, v in res.items()
+                if k.startswith(f"{case}|{name}|")}
+    flip = FLIP_SHARE * sum(want["lr"])
+    _close(leaves("m1"), want["m1"], DEFAULT_GRAD_TOL,
+           f"{mesh} {case} m after step 1 (sharded reference)")
+    _close(leaves("master2"), want["master2"], MASTER_TOL,
+           f"{mesh} {case} master after step 2 (sharded reference)", flip)
+    _close(leaves("params2"), want["params2"], MASTER_TOL,
+           f"{mesh} {case} params after step 2 (sharded reference)", flip)
 
 
 def test_each_rank_holds_its_share_of_the_optimizer_state(run):
@@ -282,21 +390,38 @@ def test_vocab_parallel_raises_not_implemented():
         DistContext(ctx.mesh, ctx.rules, vocab_parallel=True)
 
 
-def test_shardmap_moe_impl_raises_not_implemented():
-    """``extra["moe_impl"] = "shardmap"``, the reference's switch to its
-    expert-parallel ``moe_ffn_shardmap``, raises in the port's
-    ``moe_ffn``; without it the loss runs."""
-    cfg = get_config("qwen2-moe-a2.7b", reduced=True)
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
+def test_shardmap_loss_on_one_rank_equals_the_gspmd_loss(arch):
+    """``extra["moe_impl"] = "shardmap"`` on a 1 x 1 mesh (EP, every expert
+    on the one rank) where the two capacities agree: ``lm.loss`` gives the
+    global routing's cross entropy bits and its loss within rtol 1e-6 (the
+    aux loss sums in another order), and the gradients within 1e-6 of each
+    leaf's max-abs."""
+    cfg = get_config(arch, reduced=True)
     lm = LM(cfg, max_seq=16, device="cpu")
     lm.init(0, torch.float32)
-    batch = TokenPipeline(cfg, ShapeConfig("t", "train", 16, 1),
+    batch = TokenPipeline(cfg, ShapeConfig("t", "train", 16, 2),
                           seed=1).train_batch(0)
-    ctx = DistContext.create(cfg, {"data": 1, "model": 1})
-    loss, _ = lm.loss(lm.params, batch, ctx)
+    assert moe.shardmap_capacity(32, cfg) == moe._capacity(32, cfg)
+    leaves = dict(tree_flatten_with_path(lm.params))
+    got = {}
+    for impl in ("gspmd", "shardmap"):
+        ctx = DistContext.create(cfg, {"data": 1, "model": 1})
+        ctx.extra["moe_impl"] = impl
+        for t in leaves.values():
+            t.grad = None
+            t.requires_grad_(True)
+        loss, metrics = lm.loss(lm.params, batch, ctx)
+        loss.backward()
+        got[impl] = (loss.detach(), metrics["ce"].detach(),
+                     {k: t.grad.clone() for k, t in leaves.items()})
+    (loss, ce, g), (want_loss, want_ce, want_g) = got["shardmap"], got["gspmd"]
     assert torch.isfinite(loss)
-    ctx.extra["moe_impl"] = "shardmap"
-    with pytest.raises(NotImplementedError, match="A10b"):
-        lm.loss(lm.params, batch, ctx)
+    assert torch.equal(ce, want_ce)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=0)
+    for k, w in want_g.items():
+        torch.testing.assert_close(g[k], w, rtol=0,
+                                   atol=1e-6 * float(w.abs().max()) + 1e-30)
 
 
 FAMILIES = ["yi-6b", "mamba2-370m", "recurrentgemma-9b", "qwen2-moe-a2.7b",

@@ -142,9 +142,9 @@ def test_the_package_exports_only_what_is_ported():
     assert port_distributed.Coordinator is port_fault.Coordinator
     assert port_distributed.ElasticTrainer is port_fault.ElasticTrainer
     # the data-parallel half of the distributed layer, the prefill and
-    # decode steps and SP decode attention are ported; the expert-parallel
-    # moe_ffn_shardmap is not (ROADMAP A10b-2), and the reference's
-    # shard_map version shim has no counterpart
+    # decode steps, SP decode attention and the local-routing
+    # moe_ffn_shardmap are ported; the reference's shard_map version shim
+    # has no counterpart
     from repro_torch.distributed import decode_attn, steps
     from repro_torch.models import moe as port_moe
     assert port_distributed.DistContext is port_context.DistContext
@@ -153,4 +153,4 @@ def test_the_package_exports_only_what_is_ported():
     assert port_distributed.sp_decode_attention is \
         decode_attn.sp_decode_attention
     assert not hasattr(port_distributed, "shard_map")
-    assert not hasattr(port_moe, "moe_ffn_shardmap")
+    assert callable(port_moe.moe_ffn_shardmap)
