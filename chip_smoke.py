@@ -195,7 +195,9 @@ Phases, each printing one JSON line:
             at the train phase's batch, 2 steps in fsdp and in tp (ZeRO-1)
             mode with the same losses, grad norms and parameter bits as
             ``launch/train.py``'s ``train_step``, seconds per step, peak
-            memory and the extra parameter copies the DTensor path holds;
+            memory, the memory held before the steps, the per-unit
+            gather's high-water mark of gathered bytes and the extra
+            parameter copies the DTensor path holds;
             recurrentgemma-9b at full width with remat full at 6 layers
             (against remat none within 1e-3), 9 and 12 layers (each peak,
             or the out-of-memory, recorded; no depth is tried after one
@@ -209,7 +211,8 @@ Phases, each printing one JSON line:
             decodes through ``sp_decode_attention``; logits within 5e-2 of
             ``LM``'s, ids equal but at near ties), flash 32 and SSD 48
             launches a prefill; prefill seconds, decode tokens/s and peak
-            memory of each path; full qwen2-moe-a2.7b (batch 4, prompt
+            memory of each path, the step paths' gathered bytes (each unit
+            gathered and freed around its run); full qwen2-moe-a2.7b (batch 4, prompt
             2048) through ``LM`` and through the tp steps with the local
             routing (``moe_impl="shardmap"``, 24 moe layers a step each
             through ``moe_ffn_shardmap``): the same logit and id bits as
@@ -3445,8 +3448,12 @@ def phase_dist_train(tmp: Path) -> dict:
        batches (remat none, as ``train_step`` has), then ``train_step``
        again: every loss and grad norm and every parameter leaf the same
        bits as ``train_step``'s; seconds per step and peak device memory
-       of each, and the extra memory the DTensor step works in beyond
-       ``train_step``'s, in copies of the parameters;
+       of each, the memory held before the steps (``distribute_tree``
+       aliases the weights at world size 1), the per-unit gather's
+       ``gather_stats`` (its high-water mark of gathered bytes: 0, since
+       nothing is gathered at world size 1) and the extra memory the
+       DTensor step works in beyond ``train_step``'s, in copies of the
+       parameters;
     2. recurrentgemma-9b at full width cut to 6 layers, one step with
        remat full against one with remat none from the same weights and
        batch: loss and grad norm within REMAT_TOL; then remat full at 9
@@ -3596,6 +3603,7 @@ def phase_dist_train(tmp: Path) -> dict:
                                  mode=mode), peak),
                 "params_alias_the_weights": aliased,
                 "extra_parameter_copies": (peak - held - ref_work) / p_bytes,
+                "gather_stats": dict(step.gather_stats),
                 "param_leaves_bit_equal": len(want),
                 "losses": [h["loss"] for h in hist],
                 "grad_norms": [h["grad_norm"] for h in hist]}
@@ -3777,7 +3785,9 @@ def phase_dist_serve(tmp: Path) -> dict:
     times for yi-6b, SSD 48 times for mamba2-370m), its decode none.
     Prints each path's prefill seconds, decode tokens/s and peak device
     memory beside ``model_memory``'s prediction for the prefill and the
-    decode shape (1 x 1 mesh, the path's mode).  Then full qwen2-moe-a2.7b
+    decode shape (1 x 1 mesh, the path's mode), and the step legs'
+    per-unit ``gather_stats`` (no bytes gathered at world size 1, where
+    ``distribute_tree`` aliases the weights).  Then full qwen2-moe-a2.7b
     (``DIST_SERVE_MOE``) through ``LM`` and through the steps in ``tp``
     without ``sp_decode`` and with ``ctx.extra["moe_impl"] = "shardmap"``
     (``models/moe.py`` ``moe_ffn_shardmap``, local routing): at world size
@@ -3886,6 +3896,8 @@ def phase_dist_serve(tmp: Path) -> dict:
                             drive=None if mode == "fsdp"
                             else legs["lm"]["ids"])
                 leg["mode"], leg["sp_decode"] = mode, sp
+                leg["gather_stats"] = {"prefill": dict(pf.gather_stats),
+                                       "decode": dict(df.gather_stats)}
                 legs[mode] = leg
                 for k, n in leg["prefill_launches"].items():
                     path_launches[k] = path_launches.get(k, 0) + n
@@ -3948,6 +3960,8 @@ def phase_dist_serve(tmp: Path) -> dict:
                         for k, v in m.items()},
                     "prefill_launches": {k: n for k, n in
                                          leg["prefill_launches"].items() if n}}
+                if "gather_stats" in leg:
+                    report[name]["gather_stats"] = leg["gather_stats"]
             report["tp"]["max_abs_logit_err_vs_lm"] = max(errs)
             report["tp"]["near_tie_id_flips"] = flips
             report["fsdp"]["same_bits_as_lm"] = True
@@ -4070,6 +4084,8 @@ def dist_serve_shardmap(mesh, serve, path_launches: dict) -> dict:
         legs["shardmap"] = serve(lambda: pf(params, {"tokens": tokens}),
                                  lambda c, t: df(params, c, {"token": t}))
         legs["shardmap"]["shardmap_calls"] = calls[0]
+        legs["shardmap"]["gather_stats"] = {"prefill": dict(pf.gather_stats),
+                                            "decode": dict(df.gather_stats)}
         del params, pf, df
     finally:
         moe.moe_ffn_shardmap = real
@@ -4110,6 +4126,8 @@ def dist_serve_shardmap(mesh, serve, path_launches: dict) -> dict:
         "model_memory": {k: beside_peak(v, leg["peak_memory_bytes"])
                          for k, v in mm.items()},
         "moe_ffn_shardmap_calls": leg["shardmap_calls"],
+        **({"gather_stats": leg["gather_stats"]} if "gather_stats" in leg
+           else {}),
         "prefill_launches": {k: n for k, n in leg["prefill_launches"].items()
                              if n}} for name, leg in legs.items()}
     report["shardmap"]["same_bits_as_lm"] = True

@@ -9,40 +9,51 @@ data itself:
 
 - the parameters are DTensors at :func:`~.sharding.params_shardings`'
   placements (FSDP: sharded over every mesh axis; ``tp`` with a ``model``
-  axis of 1: replicated), m, v and master at
-  :func:`~.sharding.opt_shardings`' (FSDP, or ZeRO-1: sharded over the
-  data ranks), the step count a replicated tensor;
-- one step gathers each parameter to full, runs ``LM.loss`` and its
-  backward on this rank's rows of each microbatch, sums the gradients in
-  f32 over the microbatches (the reference's ``steps.py:62-82``), reduces
-  each gradient to its leaf's optimizer placement (the mean over the
-  batch group: a reduce-scatter where the leaf is sharded, an all-reduce
-  where it is not), takes the global gradient norm with every element
-  counted once, runs ``adamw_update``'s arithmetic on the local shards and
-  redistributes the new parameters (the masters cast to the parameters'
-  dtype) to their placements.
+  axis of 1: replicated, but for EP's expert ff dim over the data axes),
+  m, v and master at :func:`~.sharding.opt_shardings`' (FSDP, or ZeRO-1:
+  sharded over the data ranks), the step count a replicated tensor;
+- one step runs ``LM.loss`` and its backward on this rank's rows of each
+  microbatch through :class:`~.fsdp.UnitGather` (``distributed/fsdp.py``):
+  ``LM`` reads a tree of refs to this rank's shards, and each unit (a
+  layer of a stack, a group of a hybrid's pattern, a layer of its tail or
+  of whisper's encoder and decoder, a leaf outside the stacks where ``LM``
+  uses it) is gathered just before it runs and freed just after; the
+  backward gathers it again before its own backward and hands each full
+  gradient, as soon as the unit's backward has made it, to
+  :class:`~.fsdp.GradShards`, which reduces it to this rank's shard at
+  the leaf's optimizer placement (the mean over the batch group: a
+  reduce-scatter, a reduce to the owning rank for a leaf split on its
+  layers dimension, an all-reduce where the leaf is not split over the
+  batch axes) and sums the microbatches in f32 (the reference's
+  ``steps.py:62-82``); then the global gradient norm with every element
+  counted once, ``adamw_update``'s arithmetic on the local shards, and the
+  new parameters (the masters cast to the parameters' dtype) moved to
+  their placements (FSDP: where they already are; ZeRO-1: gathered).
 
-The gather is whole-model: every parameter is full, and so is its
-gradient, from the start of the step until the optimizer runs; only m, v
-and master stay sharded.  So ``fsdp`` here holds per rank what ZeRO-1
-holds (the parameters and gradients in full, the optimizer state over the
-ranks), not what the reference's GSPMD step holds, which gathers inside
-the layer scan.  A model whose parameters do not fit one rank
-(qwen3-moe-235b-a22b's 470 GB of bf16) cannot run; a gather per layer
-inside ``decoder_forward`` and a reduce-scatter of each layer's gradients
-as the backward reaches it is ROADMAP A10b-3.
+Between steps a rank holds its shard of every parameter and of m, v and
+master; within a step, one unit's gathered parameters at a time and its
+gradient shards (for ``fsdp``, ``launch/memmodel.py``'s accounting: params,
+optimizer state and gradients at 1/world each), as the reference's GSPMD
+step gathers inside its layer scan.  A unit's full gradients live until
+its backward has reduced them; the tied embedding's two uses add theirs
+first.  Leaves not split over a mesh axis of more than one rank are not
+gathered but read in place, so at world size 1 nothing moves.
 
 Microbatch i is the global batch's rows ``[i B/n, (i+1) B/n)``, as the
 reference reshapes it; each rank takes its block of every microbatch, so a
 moe layer routes the same tokens together as the reference does: the
 microbatch's global tokens, or with ``ctx.extra["moe_impl"] ==
 "shardmap"`` this rank's own rows of it (``models/moe.py``
-``moe_ffn_shardmap``, local routing).  At world size 1 every collective
-moves nothing (DTensor keeps the local tensor where placements differ
-only on mesh axes of one rank) and the step is ``train_step``'s
-arithmetic op for op (with ``shardmap``, the local routing's op for op).
+``moe_ffn_shardmap``, local routing).  At world size 1 no leaf is
+gathered, no gradient reduced and the new parameters stay where AdamW
+made them, so the step is ``train_step``'s arithmetic op for op, each
+gradient in the parameters' dtype (with ``shardmap``, the local routing's
+op for op).  Each step function keeps the last call's
+:class:`~.fsdp.UnitGather` ``stats`` in its ``gather_stats`` attribute.
 
-The serve steps gather the parameters the same way and run
+The serve steps gather the parameters the same way, a unit at a time
+under ``torch.no_grad()`` (a decode step gathers every unit for every
+token: FSDP's price for serving), and run
 ``LM.prefill``/``LM.decode_step`` on this rank's rows of the global batch
 (:func:`~.sharding.batch_pspec`) with the context, so a moe layer routes
 the batch group's tokens (under ``shardmap``, this rank's).  The cache is
@@ -62,17 +73,17 @@ step builder raises there.  ``build_decode_step`` in ``fsdp`` with
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import (
-    DTensor, Partial, Replicate, distribute_tensor,
-)
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 from torch.distributed.tensor import zeros as dzeros
 
 from repro_torch.core.reducer import tree_flatten_with_path, tree_map_with_path
 from repro_torch.distributed.context import DistContext
+from repro_torch.distributed.fsdp import GradShards, UnitGather, split_of
 from repro_torch.distributed.sharding import (
     map_tree, axes_tree, batch_pspec, batch_shardings, cache_shardings,
     data_axes, opt_shardings, params_shardings, shapes_tree,
@@ -131,11 +142,23 @@ def _check_mode(ctx: DistContext) -> None:
 # moving whole trees in and out
 # ----------------------------------------------------------------------
 
+def _named_axes(spec) -> set:
+    return {a for e in spec if e is not None
+            for a in ((e,) if isinstance(e, str) else e)}
+
+
 def distribute_tree(tree, ctx: DistContext, specs):
-    """Full tensors (the same on every rank) -> DTensors at ``specs``."""
-    return map_tree(lambda t, s: distribute_tensor(t, ctx.mesh,
-                                               ctx.placements(s)),
-                tree, specs)
+    """Full tensors (the same on every rank) -> DTensors at ``specs``.  A
+    leaf whose spec names no mesh axis of more than one rank is its own
+    local tensor (aliased, not copied); the others are split by
+    ``distribute_tensor``, which copies."""
+    def one(t, s):
+        pl = ctx.placements(s)
+        if all(ctx.axes[a] == 1 for a in _named_axes(s)):
+            return DTensor.from_local(t, ctx.mesh, pl, run_check=False,
+                                      shape=t.shape, stride=t.stride())
+        return distribute_tensor(t, ctx.mesh, pl)
+    return map_tree(one, tree, specs)
 
 
 def gather_tree(tree):
@@ -188,6 +211,8 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
     mesh, names = ctx.mesh, tuple(ctx.axes)
     split = batch_pspec(ctx, B) is not None
     group = ctx.batch_group() if split else None
+    batch_axes = tuple(a for a in data_axes(ctx) if ctx.axes[a] > 1) \
+        if split else ()
     n_ranks = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
     if B % n_micro or (B // n_micro) % n_ranks:
@@ -198,12 +223,11 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
     # always under local routing, whose capacity is its own
     loss_ctx = (ctx if group is not None
                 or ctx.extra.get("moe_impl") == "shardmap" else None)
-    # a gradient is the mean over the ranks that split the batch
-    batch_axes = set(data_axes(ctx))
-    grad_pl = tuple(Partial("avg") if group is not None and a in batch_axes
-                    else Replicate() for a in names)
     p_pl = {k: ctx.placements(s) for k, s in spec_leaves(p_sh)}
     o_pl = {k: ctx.placements(s) for k, s in spec_leaves(o_sh.m)}
+    p_split = functools.cache(functools.partial(_splits, ctx, p_sh))
+    o_split = functools.cache(functools.partial(_splits, ctx, o_sh.m))
+    stats = {}
     norm_group = ctx.group(names)
     coord = mesh.get_coordinate() if norm_group is not None else None
     # a leaf's squares are added by the ranks at coordinate 0 of every mesh
@@ -227,41 +251,30 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
                                   ).redistribute(mesh, dst)
 
     def step_fn(params, opt: OptState, batch):
-        full = {k: p.full_tensor().detach().requires_grad_(True)
-                for k, p in tree_flatten_with_path(params)}
-        tree = tree_map_with_path(lambda k, _: full[k], params)
-        grads, loss = None, None
+        sink = GradShards(params, o_split(), batch_axes, group, n_micro)
+        stats.clear()
+        loss = None
         for i in range(n_micro):
             lo = i * (B // n_micro) + rank * rows
             mb = {k: v[lo:lo + rows] for k, v in batch.items()}
-            value, _ = lm.loss(tree, mb, loss_ctx, remat=tc.remat)
+            gather = UnitGather(params, p_split(), sink)
+            value, _ = lm.loss(gather.refs, mb, loss_ctx, remat=tc.remat,
+                               gather=gather)
             value.backward()
-            g = {k: torch.zeros_like(t) if t.grad is None else t.grad
-                 for k, t in full.items()}
-            for t in full.values():
-                t.grad = None
-            if n_micro == 1:
-                grads, loss = g, value.detach()
-            elif grads is None:
-                grads = {k: x.to(torch.float32, copy=True)
-                         for k, x in g.items()}
-                loss = value.detach()
-            else:
-                for k, x in g.items():
-                    grads[k].add_(x.float())
-                loss = loss + value.detach()
-            del g, value
+            gather.finish()
+            sink.end_microbatch()
+            for k, v in gather.stats.items():
+                stats[k] = max(stats.get(k, 0), v)
+            loss = value.detach() if loss is None else loss + value.detach()
+            del value, gather
         if n_micro > 1:
-            grads = {k: x / n_micro for k, x in grads.items()}
             loss = loss / n_micro
         if group is not None:          # the mean of the ranks' row means
             dist.all_reduce(loss, group=group)
             loss = loss / n_ranks
-        del full, tree
         with torch.no_grad():
-            g_local = {k: place(g, grad_pl, o_pl[k], g).to_local()
-                       for k, g in grads.items()}
-            del grads
+            g_local = sink.result()
+            del sink
 
             def local(t):
                 return tree_map_with_path(lambda _, x: x.to_local(), t)
@@ -278,6 +291,7 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
         return (new_params, OptState(state.step, opt.m, opt.v, opt.master),
                 {"loss": loss, **metrics})
 
+    step_fn.gather_stats = stats
     return step_fn, (p_sh, o_sh, b_sh)
 
 
@@ -299,6 +313,13 @@ def _serve_layout(lm, ctx: DistContext, shape):
     group = ctx.batch_group()
     rows = B // dist.get_world_size(group)
     return specs, dist.get_rank(group) * rows, rows
+
+
+def _splits(ctx: DistContext, specs) -> dict:
+    """Each parameter's :class:`~.fsdp.Split`, by path (read from the
+    mesh at a step's first call: a step is built without ranks too)."""
+    return {k: split_of(ctx, ctx.placements(s))
+            for k, s in spec_leaves(specs)}
 
 
 def _place(ctx: DistContext, t, spec):
@@ -338,13 +359,16 @@ def build_prefill_step(lm, ctx: DistContext, shape,
     _check_mode(ctx)
     cache_len = cache_len or shape.seq_len
     (p_sh, b_sh, c_sh, logits_sh), lo, rows = _serve_layout(lm, ctx, shape)
+    splits = functools.cache(functools.partial(_splits, ctx, p_sh))
 
     @torch.no_grad()
     def prefill_fn(params, batch):
         local = {k: v[lo:lo + rows] for k, v in batch.items()}
+        gather = UnitGather(params, splits())
         logits, cache = lm.prefill(local.pop("tokens"), cache_len,
-                                   params=gather_tree(params), ctx=ctx,
-                                   **local)
+                                   params=gather.refs, ctx=ctx,
+                                   gather=gather, **local)
+        prefill_fn.gather_stats = gather.stats
         return _place(ctx, logits, logits_sh), _place_cache(ctx, cache, c_sh)
 
     return prefill_fn, (p_sh, b_sh, logits_sh, c_sh)
@@ -368,13 +392,17 @@ def build_decode_step(lm, ctx: DistContext, shape):
             f"with DuplicateSpecError); create the context with "
             f"sp_decode=False")
     (p_sh, b_sh, c_sh, logits_sh), lo, rows = _serve_layout(lm, ctx, shape)
+    splits = functools.cache(functools.partial(_splits, ctx, p_sh))
 
     @torch.no_grad()
     def decode_fn(params, cache, batch):
         local = tree_map_with_path(
             lambda _, t: t.to_local() if isinstance(t, DTensor) else t, cache)
+        gather = UnitGather(params, splits())
         logits, local = lm.decode_step(local, batch["token"][lo:lo + rows],
-                                       params=gather_tree(params), ctx=ctx)
+                                       params=gather.refs, ctx=ctx,
+                                       gather=gather)
+        decode_fn.gather_stats = gather.stats
         return _place(ctx, logits, logits_sh), _place_cache(ctx, local, c_sh)
 
     return decode_fn, (p_sh, c_sh, b_sh, logits_sh)

@@ -9,7 +9,9 @@ kernel (``prefill_attention``); cross attention, whose q and kv lengths
 differ, is plain PyTorch, as the reference computes it in XLA.  The cross
 K/V are computed once at prefill and kept in the cache; decode writes its
 self-attention entry in place and reads the cross K/V.  A Python loop over
-the layers takes the place of ``lax.scan``, as in :mod:`.transformer`.
+the layers takes the place of ``lax.scan``, as in :mod:`.transformer`,
+each layer (and each leaf outside the stacks) run through the gather hook
+(``transformer.WholeParams``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 from repro_torch.distributed.decode_attn import sp_decode_attention
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import P, embed_spec, rms_norm, stack_spec, swiglu
-from repro_torch.models.transformer import _o_proj, layer_views, mlp_spec, unstack
+from repro_torch.models.transformer import WHOLE, _o_proj, layer_views, mlp_spec
 
 
 def enc_layer_spec(cfg):
@@ -56,19 +58,26 @@ def _mlp(lp, x, cfg):
                       lp["mlp"]["w_down"])
 
 
-def encoder_forward(params, frames, cfg):
-    """frames (B, Senc, d) -> (B, Senc, d)."""
+def _enc_layer(lp, x, cfg):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn.qkv_project(lp["attn"], h, cfg, None)
+    o = attn.prefill_attention(q, k.transpose(1, 2).contiguous(),
+                               v.transpose(1, 2).contiguous(),
+                               causal=False)          # bidirectional
+    return _mlp(lp, x + _o_proj(o, lp["attn"]["wo"]), cfg)
+
+
+def encoder_forward(params, frames, cfg, gather=WHOLE):
+    """frames (B, Senc, d) -> (B, Senc, d); ``gather`` runs each layer and
+    each leaf outside the stack (``transformer.WholeParams``)."""
     Senc = frames.shape[1]
     frames = frames.to(params["embed"].dtype)   # the stub frontend emits f32
-    x = frames + params["enc_pos"][:Senc].to(frames.dtype)
-    for lp in unstack(params["encoder"]):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(lp["attn"], h, cfg, None)
-        o = attn.prefill_attention(q, k.transpose(1, 2).contiguous(),
-                                   v.transpose(1, 2).contiguous(),
-                                   causal=False)          # bidirectional
-        x = _mlp(lp, x + _o_proj(o, lp["attn"]["wo"]), cfg)
-    return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+    x = gather.run(lambda pos: frames + pos[:Senc].to(frames.dtype),
+                   params["enc_pos"])
+    for lp in gather.layers(params["encoder"]):
+        x = gather.run(_enc_layer, lp, x, cfg)
+    return gather.run(lambda w: rms_norm(x, w, cfg.norm_eps),
+                      params["ln_enc"])
 
 
 def _cross_kv(lp, enc_out):
@@ -77,55 +86,66 @@ def _cross_kv(lp, enc_out):
     return k, v
 
 
-def decoder_forward(params, x, enc_out, cfg, positions, cache=None):
-    """x (B,S,d) decoder stream; enc_out (B,Senc,d).  Fills ``cache`` (from
-    :func:`init_cache`, at least S self slots, Senc cross slots) when
-    given.  Returns x."""
+def _dec_layer(lp, x, enc_out, cfg, positions, entry):
     S = x.shape[1]
-    for i, lp in enumerate(unstack(params["decoder"])):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions)
-        kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        x = x + _o_proj(attn.prefill_attention(q, kh, vh), lp["attn"]["wo"])
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions)
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    x = x + _o_proj(attn.prefill_attention(q, kh, vh), lp["attn"]["wo"])
 
-        hx = rms_norm(x, lp["lnx"], cfg.norm_eps)
-        qx = torch.einsum("bsd,dhk->bshk", hx, lp["xattn"]["wq"])
-        xk, xv = _cross_kv(lp, enc_out)
-        x = x + _o_proj(attn.cross_attention(qx, xk, xv), lp["xattn"]["wo"])
-        x = _mlp(lp, x, cfg)
-        if cache is not None:
-            entry = layer_views(cache["stack"], i)
-            entry["self_k"][:, :, :S] = kh
-            entry["self_v"][:, :, :S] = vh
-            entry["cross_k"].copy_(xk.transpose(1, 2))
-            entry["cross_v"].copy_(xv.transpose(1, 2))
+    hx = rms_norm(x, lp["lnx"], cfg.norm_eps)
+    qx = torch.einsum("bsd,dhk->bshk", hx, lp["xattn"]["wq"])
+    xk, xv = _cross_kv(lp, enc_out)
+    x = x + _o_proj(attn.cross_attention(qx, xk, xv), lp["xattn"]["wo"])
+    x = _mlp(lp, x, cfg)
+    if entry is not None:
+        entry["self_k"][:, :, :S] = kh
+        entry["self_v"][:, :, :S] = vh
+        entry["cross_k"].copy_(xk.transpose(1, 2))
+        entry["cross_v"].copy_(xv.transpose(1, 2))
     return x
 
 
-def decoder_decode(params, x, cfg, pos, cache, *, ctx=None):
+def decoder_forward(params, x, enc_out, cfg, positions, cache=None,
+                    gather=WHOLE):
+    """x (B,S,d) decoder stream; enc_out (B,Senc,d).  Fills ``cache`` (from
+    :func:`init_cache`, at least S self slots, Senc cross slots) when
+    given; ``gather`` runs each layer.  Returns x."""
+    for i, lp in enumerate(gather.layers(params["decoder"])):
+        x = gather.run(_dec_layer, lp, x, enc_out, cfg, positions,
+                       None if cache is None else
+                       layer_views(cache["stack"], i))
+    return x
+
+
+def _dec_step(lp, x, cfg, pos, c, ctx):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn.qkv_project(lp["attn"], h, cfg, pos[:, None])
+    if ctx is not None and ctx.sp_decode:
+        o, _, _ = sp_decode_attention(ctx, q, c["self_k"], c["self_v"],
+                                      k, v, pos)
+    else:
+        kc, vc = attn.cache_write_plain(c["self_k"], c["self_v"], k, v,
+                                        pos)
+        o = attn.decode_attention_plain(q, kc, vc, pos)
+    x = x + _o_proj(o, lp["attn"]["wo"])
+
+    hx = rms_norm(x, lp["lnx"], cfg.norm_eps)
+    qx = torch.einsum("bsd,dhk->bshk", hx, lp["xattn"]["wq"])
+    last = torch.full((x.shape[0],), c["cross_k"].shape[2] - 1,
+                      dtype=torch.int32, device=x.device)
+    ox = attn.decode_attention_plain(qx, c["cross_k"], c["cross_v"], last)
+    return _mlp(lp, x + _o_proj(ox, lp["xattn"]["wo"]), cfg)
+
+
+def decoder_decode(params, x, cfg, pos, cache, *, ctx=None, gather=WHOLE):
     """One-token decode; cache entries per layer: self_k/self_v
     (B,KV,S,hd), written in place, and cross_k/cross_v (B,KV,Senc,hd).
     With ``ctx.sp_decode`` the self attention is ``sp_decode_attention``,
-    as in the reference."""
-    for i, lp in enumerate(unstack(params["decoder"])):
-        c = layer_views(cache["stack"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(lp["attn"], h, cfg, pos[:, None])
-        if ctx is not None and ctx.sp_decode:
-            o, _, _ = sp_decode_attention(ctx, q, c["self_k"], c["self_v"],
-                                          k, v, pos)
-        else:
-            kc, vc = attn.cache_write_plain(c["self_k"], c["self_v"], k, v,
-                                            pos)
-            o = attn.decode_attention_plain(q, kc, vc, pos)
-        x = x + _o_proj(o, lp["attn"]["wo"])
-
-        hx = rms_norm(x, lp["lnx"], cfg.norm_eps)
-        qx = torch.einsum("bsd,dhk->bshk", hx, lp["xattn"]["wq"])
-        last = torch.full((x.shape[0],), c["cross_k"].shape[2] - 1,
-                          dtype=torch.int32, device=x.device)
-        ox = attn.decode_attention_plain(qx, c["cross_k"], c["cross_v"], last)
-        x = _mlp(lp, x + _o_proj(ox, lp["xattn"]["wo"]), cfg)
+    as in the reference; ``gather`` runs each layer."""
+    for i, lp in enumerate(gather.layers(params["decoder"])):
+        x = gather.run(_dec_step, lp, x, cfg, pos,
+                       layer_views(cache["stack"], i), ctx)
     return x
 
 

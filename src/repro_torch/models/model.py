@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
+from repro_torch.models.transformer import WHOLE
 from repro_torch.models.convert import params_from_reference, tensor_from_numpy
 from repro_torch.models.layers import (
     P, embed_lookup, embed_spec, init_params, logits_from_embed, rms_norm,
@@ -90,37 +91,47 @@ class LM:
         return tensor_from_numpy(a, self.device)
 
     def _hidden(self, params, tokens, cache, vision_embeds=None,
-                encoder_frames=None, ctx=None, remat: str = "none"):
+                encoder_frames=None, ctx=None, remat: str = "none",
+                gather=WHOLE):
         """The final-normed hidden states (B, S_total, d) and the moe aux
-        loss (an f32 zero for the other families); ``ctx`` and ``remat``
-        as :meth:`loss` takes them."""
+        loss (an f32 zero for the other families); ``ctx``, ``remat`` and
+        ``gather`` as :meth:`loss` takes them."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = embed_lookup(params["embed"], tokens)
+        x = gather.run(embed_lookup, params["embed"], tokens)
         if cfg.family == "encdec":
             enc = encdec.encoder_forward(
-                params, self._input(encoder_frames, "encoder_frames"), cfg)
-            x = x + params["dec_pos"][:x.shape[1]][None].to(x.dtype)
+                params, self._input(encoder_frames, "encoder_frames"), cfg,
+                gather)
+            x = gather.run(
+                lambda pos: x + pos[:x.shape[1]][None].to(x.dtype),
+                params["dec_pos"])
         elif cfg.family == "vlm":
             ve = self._input(vision_embeds, "vision_embeds").to(x.dtype)
             x = torch.cat([ve, x], dim=1)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         if cfg.family == "encdec":
-            x = encdec.decoder_forward(params, x, enc, cfg, positions, cache)
+            x = encdec.decoder_forward(params, x, enc, cfg, positions, cache,
+                                       gather)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
             x, aux = transformer.decoder_forward(params["decoder"], x, cfg,
                                                  positions, cache, ctx=ctx,
-                                                 remat=remat)
+                                                 remat=remat, gather=gather)
         if cache is not None:
             cache["pos"].fill_(S)
             cache["filled"] = S
-        return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
+        return self._final_norm(params, x, gather), aux
 
-    def _logits(self, params, x):
-        return logits_from_embed(
-            x, params["embed"] if self.cfg.tie_embeddings else params["w_out"])
+    def _final_norm(self, params, x, gather=WHOLE):
+        return gather.run(lambda w: rms_norm(x, w, self.cfg.norm_eps),
+                          params["ln_f"])
+
+    def _logits(self, params, x, gather=WHOLE):
+        return gather.run(
+            lambda w: logits_from_embed(x, w),
+            params["embed"] if self.cfg.tie_embeddings else params["w_out"])
 
     def _prompt_cache(self, tokens, cache_len, vision_embeds, encoder_frames,
                       dtype):
@@ -151,7 +162,8 @@ class LM:
                             encoder_frames)
         return self._logits(params, x), cache
 
-    def loss(self, params, batch: dict, ctx=None, *, remat: str = "none"):
+    def loss(self, params, batch: dict, ctx=None, *, remat: str = "none",
+             gather=WHOLE):
         """Next-token cross entropy (+ the moe aux loss), as the
         reference's ``LM.loss``: ``batch["tokens"]`` (B, S+1) splits into
         inputs and labels; a vlm's logits past its ``num_patches`` patch
@@ -165,13 +177,17 @@ class LM:
         step does (:mod:`repro_torch.models.moe`).  ``remat``: none, dots
         or full, the reference's activation checkpointing of each decoder
         scan body (:func:`repro_torch.models.transformer.decoder_forward`;
-        the encdec family's decoder has none, as in the reference)."""
+        the encdec family's decoder has none, as in the reference).
+        ``gather``: the hook each unit and each leaf outside the stacks
+        runs through (``transformer.WholeParams`` by default; a sharded
+        step passes its ``distributed.fsdp.UnitGather`` and ``params`` as
+        its tree of refs)."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         inp, labels = tokens[:, :-1], tokens[:, 1:]
         x, aux = self._hidden(params, inp, None, batch.get("vision_embeds"),
-                              batch.get("encoder_frames"), ctx, remat)
-        logits = self._logits(params, x)
+                              batch.get("encoder_frames"), ctx, remat, gather)
+        logits = self._logits(params, x, gather)
         if cfg.family == "vlm":
             logits = logits[:, cfg.num_patches:]
         ce = softmax_xent(logits, labels, cfg.vocab_size)
@@ -180,22 +196,24 @@ class LM:
     @torch.no_grad()
     def prefill(self, tokens, cache_len: int | None = None, *,
                 vision_embeds=None, encoder_frames=None, params=None,
-                ctx=None):
+                ctx=None, gather=WHOLE):
         """Process a prompt; returns (last-position logits (B,V), cache).
         Only the last position goes through the logits product.  ``params``
         (``self.params`` by default) and ``ctx`` as the reference's
         ``LM.prefill(params, batch, ctx)`` takes them: with a
         ``DistContext`` whose batch group has several ranks (this rank's
-        rows of a split batch), the moe layers route the group's tokens."""
+        rows of a split batch), the moe layers route the group's tokens.
+        ``gather`` as :meth:`loss`."""
         params = self.params if params is None else params
         cache = self._prompt_cache(tokens, cache_len, vision_embeds,
                                    encoder_frames, params["embed"].dtype)
         x, _ = self._hidden(params, tokens, cache, vision_embeds,
-                            encoder_frames, ctx)
-        return self._logits(params, x[:, -1]), cache
+                            encoder_frames, ctx, gather=gather)
+        return self._logits(params, x[:, -1], gather), cache
 
     @torch.no_grad()
-    def decode_step(self, cache, token, *, params=None, ctx=None):
+    def decode_step(self, cache, token, *, params=None, ctx=None,
+                    gather=WHOLE):
         """One new token (B,1); returns (logits (B,V), cache), the cache
         updated in place.  Raises ``IndexError`` when a full kv cache has
         no slot left (the reference clamps and overwrites the last slot);
@@ -204,7 +222,8 @@ class LM:
         runs out.  ``params`` and ``ctx`` as :meth:`prefill`; with
         ``ctx.sp_decode`` the full attention layers run
         ``sp_decode_attention`` over the cache's slots on the ``model``
-        ranks, as the reference's decode does."""
+        ranks, as the reference's decode does; ``gather`` as
+        :meth:`loss`."""
         params = self.params if params is None else params
         filled = cache["filled"]
         stack = cache.get("stack", {})
@@ -214,19 +233,20 @@ class LM:
                              f"cache of {kv.shape[3]} slots")
         token = torch.as_tensor(token, device=self.device).long()
         pos = cache["pos"]
-        x = embed_lookup(params["embed"], token)
+        x = gather.run(embed_lookup, params["embed"], token)
         if self.cfg.family == "encdec":
             at = pos.clamp(0, self.max_seq - 1).long()
-            x = x + params["dec_pos"][at][:, None, :].to(x.dtype)
+            x = gather.run(lambda t: x + t[at][:, None, :].to(x.dtype),
+                           params["dec_pos"])
             x = encdec.decoder_decode(params, x, self.cfg, pos, cache,
-                                      ctx=ctx)
+                                      ctx=ctx, gather=gather)
         else:
             x = transformer.decoder_decode(params["decoder"], x, self.cfg,
-                                           pos, cache, ctx=ctx)
-        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
+                                           pos, cache, ctx=ctx, gather=gather)
+        x = self._final_norm(params, x, gather)
         cache["pos"] = pos + 1
         cache["filled"] = filled + 1
-        return self._logits(params, x)[:, 0], cache
+        return self._logits(params, x, gather)[:, 0], cache
 
     def init_cache(self, B: int, cache_len: int, dtype=None) -> dict:
         """Zeros cache; ``dtype`` defaults to the parameters' (a prefill

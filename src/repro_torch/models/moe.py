@@ -251,9 +251,11 @@ def local_experts(p, cfg, expert_mode: str, j: int, m: int):
     dim (columns of w_gate and w_up, rows of w_down).
 
     The reference's layer holds the ff dim sharded over the data axes
-    under EP and all-gathers it here (``moe.py:112-116``); the port's
-    weights arrive full, so that gather is the identity and this slice is
-    the one place that takes the block."""
+    under EP and all-gathers it here (``moe.py:112-116``).  In the port's
+    steps that gather is the per-unit gather of ``distributed/fsdp.py``
+    (``UnitGather``), which hands the layer its weights full, each unit
+    just before it runs; this slice is the one place that takes the
+    rank's block of them."""
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
     if m == 1:
         return wg, wu, wd, 0

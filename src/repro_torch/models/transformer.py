@@ -17,7 +17,9 @@ forward's remat wraps each of the scan's bodies (a layer, or a group) in
 cache is written in place: prefill fills a zeroed cache layer by layer,
 decode writes each new entry and state into it (the reference builds new
 arrays).  The hybrid family's attention caches are rings of
-``min(local_window, cache_len)`` slots.
+``min(local_window, cache_len)`` slots.  Each unit runs through a gather
+hook (:class:`WholeParams` by default; a sharded step's per-unit gather,
+``distributed/fsdp.py``).
 """
 from __future__ import annotations
 
@@ -98,6 +100,28 @@ def unstack(stack) -> list:
         n = len(next(iter(per.values())))
         return [{k: per[k][i] for k in per} for i in range(n)]
     return list(stack.unbind(0))
+
+
+class WholeParams:
+    """The gather hook of parameters that lie whole on this device (``LM``
+    on one device, every model function's default): ``layers`` is
+    :func:`unstack` and ``run(fn, params, *args)`` is ``fn(params,
+    *args)``, so the model runs op for op as it would without a hook.
+    The other hook is ``distributed/fsdp.py``'s ``UnitGather``, which
+    gathers a unit's shards before ``fn`` and frees them after; the model
+    calls the hook around each unit of :func:`_units`, each layer of an
+    encdec stack and each use of a leaf outside the stacks."""
+
+    @staticmethod
+    def layers(stack) -> list:
+        return unstack(stack)
+
+    @staticmethod
+    def run(fn, params, *args):
+        return fn(params, *args)
+
+
+WHOLE = WholeParams()
 
 
 def _o_proj(o, wo):
@@ -241,21 +265,22 @@ def block_dec(kind, lp, x, cfg, pos, entry, ctx=None):
 # The stack
 # ======================================================================
 
-def _units(params, cfg, cache):
+def _units(params, cfg, cache, gather=WHOLE):
     """The stack's layers as the reference's ``decoder_forward`` runs them:
     each unit a list of (kind, layer params, layer cache entry or None)
     and whether it is a scan body (the unit remat wraps).  A ``stack``
     gives one unit a layer; a hybrid stack one unit a group of its
     pattern, then one a layer of its tail, which the reference runs
-    outside its scan."""
+    outside its scan.  The layer params are ``gather.layers``' (the
+    caller runs each unit through ``gather.run``)."""
     if "stack" in params:
         kind = cfg.layer_kinds()[0]
-        for i, lp in enumerate(unstack(params["stack"])):
+        for i, lp in enumerate(gather.layers(params["stack"])):
             yield [(kind, lp, None if cache is None else
                     layer_views(cache["stack"], i))], True
         return
     group, G, tail = _groups(cfg)
-    groups = unstack(params["groups"])
+    groups = gather.layers(params["groups"])
     for g in range(G):
         yield [(kind, groups[g][n],
                 None if cache is None else layer_views(cache["groups"][n], g))
@@ -263,13 +288,6 @@ def _units(params, cfg, cache):
     for n, kind in tail:
         yield [(kind, params["tail"][n],
                 None if cache is None else cache["tail"][n])], False
-
-
-def _layers(params, cfg, cache):
-    """(kind, layer params, layer cache entry or None) in the stack's
-    order: the layers of a ``stack``, or the groups' pattern then the tail."""
-    for blocks, _ in _units(params, cfg, cache):
-        yield from blocks
 
 
 def _run_blocks(blocks, x, cfg, positions, ctx):
@@ -283,7 +301,9 @@ def _run_blocks(blocks, x, cfg, positions, ctx):
 
 
 # the matmuls' outputs, which ``dots`` keeps (jax's ``dots_saveable``);
-# einsum and ``@`` reach these
+# einsum and ``@`` reach these.  No weight is such an output, so under a
+# step's per-unit gather ``dots`` keeps no gathered weight: the weights
+# the recompute reads are gathered again before the unit's backward
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                    torch.ops.aten.addmm.default,
                    torch.ops.aten.baddbmm.default})
@@ -311,36 +331,39 @@ def _remat_wrap(fn, remat: str):
 
 
 def decoder_forward(params, x, cfg, positions, cache=None, *, ctx=None,
-                    remat: str = "none"):
+                    remat: str = "none", gather=WHOLE):
     """Run every layer over full sequences; fills ``cache`` (from
     :func:`init_cache`, at least S slots) when given.  Returns (x, aux):
     the moe layers' aux losses summed in layer order from an f32 zero (a
     zero for the other families), as the reference's ``(x, aux_total,
     cache)``.  ``remat`` wraps each scan body of :func:`_units` (training
-    only: a cache is filled without it); ``ctx`` reaches the moe FFN."""
+    only: a cache is filled without it); ``ctx`` reaches the moe FFN;
+    ``gather`` runs each unit (:class:`WholeParams`)."""
     if remat != "none" and cache is not None:
         raise ValueError("remat is for training; prefill fills its cache "
                          "without it")
     body = _remat_wrap(_run_blocks, remat)
-    # without remat, one block at a time: a unit's input would otherwise
-    # stay alive through the whole unit (a hybrid group's three blocks)
-    units = (_units(params, cfg, cache) if remat != "none" else
-             (([block], False) for block in _layers(params, cfg, cache)))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blocks, scanned in units:
-        x, auxs = (body if scanned else _run_blocks)(blocks, x, cfg,
-                                                      positions, ctx)
+    for blocks, scanned in _units(params, cfg, cache, gather):
+        x, auxs = gather.run(body if scanned else _run_blocks, blocks, x,
+                             cfg, positions, ctx)
         for a in auxs:
             aux = aux + a
     return x, aux
 
 
-def decoder_decode(params, x, cfg, pos, cache, *, ctx=None):
+def _dec_blocks(blocks, x, cfg, pos, ctx):
+    for kind, lp, entry in blocks:
+        x = block_dec(kind, lp, x, cfg, pos, entry, ctx)
+    return x
+
+
+def decoder_decode(params, x, cfg, pos, cache, *, ctx=None, gather=WHOLE):
     """One-token decode through the stack, updating ``cache`` in place;
     ``ctx`` reaches the attention blocks (:func:`attn_block_dec`) and the
-    moe FFN."""
-    for kind, lp, entry in _layers(params, cfg, cache):
-        x = block_dec(kind, lp, x, cfg, pos, entry, ctx)
+    moe FFN; ``gather`` runs each unit (:class:`WholeParams`)."""
+    for blocks, _ in _units(params, cfg, cache, gather):
+        x = gather.run(_dec_blocks, blocks, x, cfg, pos, ctx)
     return x
 
 

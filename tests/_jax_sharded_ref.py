@@ -1,6 +1,7 @@
 """The reference's sharded runs, in a process of its own with 8 host
 devices, for the port's gloo tests (``tests/test_torch_moe_shardmap.py``,
-``tests/test_torch_distributed.py``).
+``tests/test_torch_distributed.py``; ``tests/test_torch_fsdp.py`` runs its
+single-device reference here, on a 1 x 1 mesh, beside its spawns).
 
 The test process keeps its one CPU device (``tests/conftest.py``), so the
 parent starts this script with ``XLA_FLAGS=--xla_force_host_platform_
@@ -21,14 +22,15 @@ is a list of jobs, each a dict with ``kind``:
   x; also the dense ``moe_ffn`` (no context) of the same inputs.  Inputs
   ``{key}|p|<keystr>``, ``{key}|x``, ``{key}|c``; outputs ``{key}|out``,
   ``|aux``, ``|dense``, ``|loss``, ``|grad|<keystr>``, ``|gx``.
-- ``train``: two ``build_train_step`` steps (tp mode, ``moe_impl``,
-  ``microbatches``, no remat) from ``{key}|params|<keystr>`` on
-  ``{key}|batch<s>|tokens``: losses, grad norms, lrs, m after step 1 and
-  master and parameters after step 2.
+- ``train``: two ``build_train_step`` steps (``mode``, tp by default;
+  ``moe_impl``, ``microbatches``, no remat) from ``{key}|params|<keystr>``
+  on the batch ``{key}|batch<s>|<name>`` (``tokens``, and an encdec's
+  ``encoder_frames``): losses, grad norms, lrs, m after step 1 and master
+  and parameters after step 2.
 - ``serve``: ``build_prefill_step`` (cache ``cache`` slots) on
-  ``{key}|batch|tokens`` then ``steps`` greedy ``build_decode_step``
-  steps (tp, ``sp_decode``): the logits of each, the ids, the cache after
-  prefill and after the last step.
+  ``{key}|batch|<name>`` then ``steps`` greedy ``build_decode_step``
+  steps (``mode``, tp by default; ``sp_decode``): the logits of each, the
+  ids, the cache after prefill and after the last step.
 
 Configs are the reduced ones of ``repro.configs`` with the job's
 ``replace`` fields; weights and data come from the parent, made by numpy
@@ -98,6 +100,10 @@ def main(argv=None) -> int:
         return _tree({k[n:]: jnp.asarray(data[k]) for k in data.files
                       if k.startswith(prefix)})
 
+    def fields(prefix: str) -> dict:
+        return {k[len(prefix):]: jnp.asarray(data[k]) for k in data.files
+                if k.startswith(prefix)}
+
     for job in jobs:
         key = job["key"]
         src = job.get("inputs", key)      # the prefix of the job's inputs
@@ -106,7 +112,8 @@ def main(argv=None) -> int:
         mesh = jax.make_mesh(tuple(job["mesh"]), ("data", "model"),
                              axis_types=(AxisType.Auto,) * 2)
         ctx = DistContext.create(cfg, mesh, sp_decode=job.get("sp_decode",
-                                                               True))
+                                                               True),
+                                 mode=job.get("mode", "tp"))
         if job.get("moe_impl"):
             ctx.extra["moe_impl"] = job["moe_impl"]
         if job["kind"] == "layer":
@@ -140,8 +147,8 @@ def main(argv=None) -> int:
                 opt = jax.tree_util.tree_map(
                     lambda a: jnp.array(a, copy=True), init_opt_state(params))
                 for s in range(2):
-                    params, opt, m = step(params, opt, {
-                        "tokens": jnp.asarray(data[f"{src}|batch{s}|tokens"])})
+                    params, opt, m = step(params, opt, fields(
+                        f"{src}|batch{s}|"))
                     for k in ("loss", "grad_norm", "lr"):
                         out[f"{key}|{k}{s}"] = np.array(float(m[k]))
                     if s == 0:
@@ -151,8 +158,8 @@ def main(argv=None) -> int:
                 for k, v in flat(tree).items():
                     out[f"{key}|{name}|{k}"] = v
         elif job["kind"] == "serve":
-            tokens = jnp.asarray(data[f"{src}|batch|tokens"])
-            B, S = tokens.shape
+            prompt = fields(f"{src}|batch|")
+            B, S = prompt["tokens"].shape
             lm = LM(cfg, max_seq=job["cache"])
             params = inputs(f"{src}|params|")
             with mesh:
@@ -160,7 +167,7 @@ def main(argv=None) -> int:
                     "p", "prefill", S, B), cache_len=job["cache"])
                 df, _ = build_decode_step(lm, ctx, ShapeConfig(
                     "d", "decode", job["cache"], B))
-                logits, cache = pf(params, {"tokens": tokens})
+                logits, cache = pf(params, prompt)
                 for k, v in flat(cache).items():
                     out[f"{key}|cache0|{k}"] = v
                 got, ids = [np.array(logits, np.float32)], []
