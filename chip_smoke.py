@@ -218,7 +218,22 @@ Phases, each printing one JSON line:
             through ``moe_ffn_shardmap``): the same logit and id bits as
             ``LM``'s, flash 24 launches a prefill, the leg's seconds; and
             ``sp_decode_attention`` against the plain write and attention
-            at yi-6b's decode shape in bf16.
+            at yi-6b's decode shape in bf16;
+17. dist_tp: tensor-parallel compute over ``model``: two ranks as
+            two processes of this script on the one card, gloo over CUDA
+            tensors on a (1, 2) mesh (``make_dev_mesh(..., backend=
+            "gloo")``; NCCL refuses two ranks on one device): a probe of
+            which gloo collectives take CUDA tensors; full yi-6b serving
+            (batch 4, prompt 2048, 32 steps) in tp with sp_decode off and
+            on against ``LM`` in this process (logits within 5e-2, ids
+            equal but at near ties, flash 32 launches a rank's prefill at
+            16 of 32 heads); full-width minicpm-2b training at the most
+            of 40, 20 and 10 layers at which both ranks fit, against
+            ``build_train_step`` at world size 1 (loss within 1e-3, grad
+            norm within 5e-2; flash forward and backward at 18 of 36
+            heads); seconds, each rank's peak memory beside
+            ``model_memory`` for tp on (1, 2), and the collectives' bytes
+            and share of the step (host-staged gloo, not NCCL's times).
 
 Every peak of device memory (the serve cells, the train legs, dist_train,
 dist_serve) is printed beside ``launch.memmodel.model_memory``'s terms and
@@ -226,8 +241,8 @@ total for the same cell on a 1 x 1 mesh (``hbm_bytes`` the card's memory)
 and the ratio of the peak to the model.
 
 Then the ``kernels`` line (each kernel's launches summed over the session,
-socket, fleet, gateway, checkpoint, serve, train, dist_train and
-dist_serve runs, and split by run in ``launches_by_path``), and last
+socket, fleet, gateway, checkpoint, serve, train, dist_train, dist_serve
+and dist_tp runs, and split by run in ``launches_by_path``), and last
 ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -236,6 +251,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -4141,13 +4157,766 @@ def dist_serve_shardmap(mesh, serve, path_launches: dict) -> dict:
             "seconds": time.perf_counter() - t_leg}
 
 
+# ----------------------------------------------------------------------
+# dist_tp: two ranks as two processes on the one card, gloo over CUDA
+# tensors (NCCL refuses two ranks on one device)
+# ----------------------------------------------------------------------
+
+TP_WORLD = 2
+TP_RANK_TIMEOUT = 600              # seconds a rank process may take
+TP_COLLECTIVE_TIMEOUT = 120        # seconds a gloo collective may wait
+TP_SERVE = ("yi-6b", YI_BATCH, YI_PROMPT)
+# minicpm-2b's depths tried, most first: the first at which both ranks fit
+TP_TRAIN_LAYERS = (40, 20, 10)
+# the tp step's grad norm, and each leaf's gradient norm, against world
+# size 1's, both bf16 (the row-split products' partial sums round to bf16
+# before the all-reduce adds them), about 4 times the largest gaps read on
+# an H100: 2.0e-3 and 5.1e-3 (step 2; world size 1 with each batch's rows
+# reversed, the same sums in another order: 8.2e-4 and 1.7e-3).  A
+# to_model all-reduce dropped from the first or the middle of 40 layers
+# moves them past these limits, from the last not: the CPU tests, which
+# hold every element of the gradients, catch that
+TP_GRAD_NORM_RTOL = 1e-2
+TP_LEAF_NORM_RTOL = 2e-2
+TP_PROBE_ELEMS = 1024
+TP_PROBE_TIMED_BYTES = 32 << 20    # the all_reduce timed in the probe
+TP_PROBE_OPS = ("all_reduce_sum", "all_reduce_max", "broadcast",
+                "all_gather_into_tensor", "all_gather",
+                "reduce_scatter_tensor")
+
+
+def tp_probe(rank: int, world: int) -> dict:
+    """Which gloo collectives take CUDA tensors here, in bf16 and f32:
+    each op's outcome ("ok", "wrong" or the error it raised) on this rank,
+    and the median time of an all_reduce of TP_PROBE_TIMED_BYTES."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    out: dict = {}
+    for dt in (torch.bfloat16, torch.float32):
+        n = TP_PROBE_ELEMS
+        x = torch.full((n,), float(rank + 1), dtype=dt, device=dev)
+        total, top = world * (world + 1) / 2, float(world)
+
+        def ar(op):
+            y = x.clone()
+            dist.all_reduce(y, op=op)
+            return y
+
+        def bc():
+            y = x.clone()
+            dist.broadcast(y, src=world - 1)
+            return y
+
+        def agt():
+            y = x.new_empty(world * n)
+            dist.all_gather_into_tensor(y, x)
+            return y
+
+        def agl():
+            ys = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(ys, x)
+            return torch.cat(ys)
+
+        def rs():
+            y = x.new_empty(n // world)
+            dist.reduce_scatter_tensor(y, x)
+            return y
+        ramp = torch.arange(1, world + 1, device=dev, dtype=dt
+                            ).repeat_interleave(n)
+        ops = {"all_reduce_sum": (lambda: ar(dist.ReduceOp.SUM),
+                                  lambda y: bool((y == total).all())),
+               "all_reduce_max": (lambda: ar(dist.ReduceOp.MAX),
+                                  lambda y: bool((y == top).all())),
+               "broadcast": (bc, lambda y: bool((y == top).all())),
+               "all_gather_into_tensor": (agt, lambda y: torch.equal(y, ramp)),
+               "all_gather": (agl, lambda y: torch.equal(y, ramp)),
+               "reduce_scatter_tensor": (rs, lambda y: bool(
+                   (y == total).all()))}
+        got = {}
+        for name in TP_PROBE_OPS:
+            fn, check = ops[name]
+            try:
+                y = fn()
+                torch.cuda.synchronize()
+                got[name] = "ok" if check(y) else "wrong"
+            # the probe's finding is each collective's own error
+            except (RuntimeError, ValueError, NotImplementedError) as e:
+                got[name] = f"{type(e).__name__}: " + \
+                    (str(e).splitlines() or [""])[0][:200]
+            dist.barrier()
+        big = torch.ones(TP_PROBE_TIMED_BYTES // x.element_size(), dtype=dt,
+                         device=dev)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            dist.all_reduce(big)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        got["all_reduce_ms"] = 1e3 * statistics.median(times[1:])
+        got["all_reduce_bytes"] = TP_PROBE_TIMED_BYTES
+        out[str(dt).replace("torch.", "")] = got
+    return out
+
+
+def tp_probe_mesh(world: int) -> dict:
+    """A (1, world) ("data", "model") ``DeviceMesh`` on the card over the
+    gloo world, and an all_reduce over its ``model`` group."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
+    y = torch.ones(8, device="cuda")
+    dist.all_reduce(y, group=mesh.get_group("model"))
+    return {"mesh": str(mesh), "model_group_sum": float(y[0])}
+
+
+class CollectiveMeter:
+    """Counts the ``torch.distributed`` collectives a rank issues (calls,
+    payload bytes, seconds between two synchronises of the card) while
+    installed: the dist_tp legs' TP traffic and its share of a step."""
+
+    OPS = ("all_reduce", "all_gather_into_tensor", "all_gather", "broadcast",
+           "reduce_scatter_tensor", "reduce")
+
+    def __init__(self):
+        self.counts: dict = {}
+        self.real: dict = {}
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        for name in self.OPS:
+            real = self.real[name] = getattr(dist, name)
+
+            def wrapped(t, *a, _real=real, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(t, *a, **kw)
+                torch.cuda.synchronize()
+                arg = t[0] if isinstance(t, list) else t
+                rec = self.counts.setdefault(_name, [0, 0, 0.0])
+                rec[0] += 1
+                rec[1] += arg.numel() * arg.element_size()
+                rec[2] += time.perf_counter() - t0
+                return out
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, real in self.real.items():
+            setattr(dist, name, real)
+
+    def take(self) -> dict:
+        """{op: {"calls", "bytes", "seconds"}} since the last take."""
+        out = {k: {"calls": c, "bytes": b, "seconds": t}
+               for k, (c, b, t) in self.counts.items()}
+        self.counts = {}
+        return out
+
+
+def collective_totals(by_op: dict) -> tuple[int, float]:
+    return (sum(v["bytes"] for v in by_op.values()),
+            sum(v["seconds"] for v in by_op.values()))
+
+
+def tp_mesh_memory(cfg, kind: str, seq: int, batch: int, *, tc=None,
+                   max_seq: int | None = None) -> dict:
+    """``model_memory`` of one cell in tp on the (1, TP_WORLD) mesh."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import DistContext
+    from repro_torch.launch.memmodel import model_memory
+    from repro_torch.models import LM
+
+    ctx = DistContext.create(cfg, {"data": 1, "model": TP_WORLD}, mode="tp")
+    lm = LM(cfg, max_seq=max_seq or seq, device="cpu")
+    return model_memory(cfg, ShapeConfig("smoke", kind, seq, batch), ctx,
+                        tc or TrainConfig(), lm, hbm_bytes=card_memory())
+
+
+def tp_rank_serve(rank: int, tmp: Path) -> dict:
+    """The serve leg on this rank: full TP_SERVE_ARCH in tp on the (1, 2)
+    gloo mesh, its weights made from SEED as the parent's ``LM`` made
+    them, then, with ``sp_decode`` off and on, a prefill and GEN decode
+    steps driven by ``LM``'s greedy ids.  Rank 0 saves each step's full
+    logits; every rank returns its times, launches, peak memory,
+    collectives and ``gather_stats``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.reducer import tree_flatten_with_path
+    from repro_torch.distributed import (
+        DistContext, build_decode_step, build_prefill_step, distribute_tree,
+    )
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import LM
+
+    arch, batch, prompt = TP_SERVE
+    cfg = serve_config(arch)
+    total = prompt + GEN
+    inputs = torch.load(tmp / "serve-inputs.pt")
+    tokens, drive = inputs["tokens"].cuda(), inputs["ids"].cuda()
+    mesh = make_dev_mesh(1, TP_WORLD, device="cuda", backend="gloo")
+    lm = LM(cfg, max_seq=total, device="cuda")
+    weights = lm.init(SEED, torch.bfloat16)
+    lm.params = None
+    pshape = ShapeConfig("smoke", "prefill", prompt, batch)
+    dshape = ShapeConfig("smoke", "decode", total, batch)
+    params, legs = None, {}
+    with CollectiveMeter() as meter:
+        for sp in (False, True):
+            ctx = DistContext.create(cfg, mesh, mode="tp", sp_decode=sp)
+            pf, (p_sh, _, _, _) = build_prefill_step(lm, ctx, pshape,
+                                                     cache_len=total)
+            df, _ = build_decode_step(lm, ctx, dshape)
+            if params is None:
+                params = distribute_tree(weights, ctx, p_sh)
+                del weights
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            meter.take()
+            before = lm_launches()
+            t0 = time.perf_counter()
+            logits, cache = pf(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            coll_prefill = meter.take()
+            mid = lm_launches()
+            out = [full_logits(logits, ctx)]
+            t_decode, coll_decode = 0.0, {}
+            for s in range(GEN):
+                meter.take()        # the comparison's gather, not the step's
+                t0 = time.perf_counter()
+                logits, cache = df(params, cache, {"token": drive[:, s:s + 1]})
+                torch.cuda.synchronize()
+                t_decode += time.perf_counter() - t0
+                for op, rec in meter.take().items():
+                    acc = coll_decode.setdefault(
+                        op, {"calls": 0, "bytes": 0, "seconds": 0.0})
+                    for k in acc:
+                        acc[k] += rec[k]
+                out.append(full_logits(logits, ctx))
+            after = lm_launches()
+            peak = torch.cuda.max_memory_allocated()
+            if rank == 0:
+                torch.save(out, tmp / f"serve-logits-{int(sp)}.pt")
+            legs["sp" if sp else "nosp"] = {
+                "sp_decode": sp, "prefill_seconds": t_prefill,
+                "decode_seconds": t_decode,
+                "decode_tokens_per_s": GEN * batch / t_decode,
+                "peak_memory_bytes": peak, "held_before": held,
+                "model_memory": {
+                    "prefill": beside_peak(tp_mesh_memory(
+                        cfg, "prefill", prompt, batch, max_seq=total), peak),
+                    "decode": beside_peak(tp_mesh_memory(
+                        cfg, "decode", total, batch, max_seq=total), peak)},
+                "prefill_launches": {k: mid[k] - before[k] for k in mid},
+                "decode_launches": {k: after[k] - mid[k] for k in mid},
+                "collectives": {"prefill": coll_prefill,
+                                "decode_all_steps": coll_decode},
+                "gather_stats": {"prefill": dict(pf.gather_stats),
+                                 "decode": dict(df.gather_stats)}}
+            del cache, logits, pf, df
+    return {"legs": legs, "local_param_bytes": sum(
+        t.to_local().numel() * t.element_size()
+        for _, t in tree_flatten_with_path(params))}
+
+
+def full_logits(logits, ctx):
+    """A serve step's logits DTensor (this rank's vocab block) -> the
+    whole logits on the host, gathered with ``all_gather_into_tensor``:
+    ``full_tensor``'s functional collective ends in a segmentation fault
+    on gloo over CUDA tensors (torch 2.11 on the card's machine)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    local = logits.to_local()
+    return tp.gather_model(local, local.dim() - 1,
+                           tp.model_group(ctx)).float().cpu()
+
+
+def tp_train_setup(layers: int):
+    """(config at ``layers`` of TRAIN_ARCH's, shape, TrainConfig, batches):
+    dist_train's minicpm-2b cell, cut in depth only."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers)
+    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    tc = TrainConfig(learning_rate=float(TRAIN_LR), total_steps=DIST_STEPS,
+                     warmup_steps=max(DIST_STEPS // 10, 1),
+                     schedule=cfg.schedule, remat="none")
+    pipe = TokenPipeline(cfg, shape, seed=0)
+    return cfg, shape, tc, [pipe.train_batch(s) for s in range(DIST_STEPS)]
+
+
+def tp_train_steps(mesh, layers: int, meter=None, reverse=False) -> dict:
+    """DIST_STEPS of ``build_train_step`` in tp on ``mesh`` from weights
+    made from the TrainConfig's seed -> losses, grad norms, each leaf's
+    squared gradient norm, each step's seconds, launches and (with
+    ``meter``) collectives, the peak memory, the memory held before the
+    steps and ``gather_stats``.  ``reverse``: each batch's rows in reverse
+    order (the same mean loss, its sums in another order)."""
+    import gc
+
+    import torch
+
+    from repro_torch.distributed import (
+        DistContext, build_train_step, distribute_tree,
+        init_sharded_opt_state,
+    )
+    from repro_torch.models import LM
+
+    cfg, shape, tc, batches = tp_train_setup(layers)
+    if reverse:
+        batches = [{k: v[::-1].copy() for k, v in b.items()}
+                   for b in batches]
+    lm = LM(cfg, max_seq=TRAIN_SEQ, device="cuda")
+    ctx = DistContext.create(cfg, mesh, mode="tp")
+    step, (p_sh, o_sh, _) = build_train_step(lm, tc, ctx, shape)
+    params = distribute_tree(lm.init(tc.seed, torch.bfloat16), ctx, p_sh)
+    lm.params = None
+    opt = init_sharded_opt_state(ctx, params, o_sh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for b in batches:
+        if meter is not None:
+            meter.take()
+        before = lm_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        hist.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "seconds": time.perf_counter() - t0,
+                     "grad_sq": {k: float(v)
+                                 for k, v in step.grad_sq.items()},
+                     "launches": {k: n - before[k]
+                                  for k, n in lm_launches().items()},
+                     **({"collectives": meter.take()} if meter else {})})
+    return {"steps": hist,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "held_before_steps": held, "gather_stats": dict(step.gather_stats)}
+
+
+def tp_rank_train(layers: int) -> dict:
+    """The train leg on this rank at ``layers`` layers (the (1, 2) gloo
+    mesh); an out-of-memory is recorded and ends the process with code 3."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_dev_mesh(1, TP_WORLD, device="cuda", backend="gloo")
+    try:
+        with CollectiveMeter() as meter:
+            out = tp_train_steps(mesh, layers, meter)
+    except torch.cuda.OutOfMemoryError as e:
+        return {"oom": str(e).splitlines()[0]}
+    cfg, _, tc, _ = tp_train_setup(layers)
+    out["model_memory"] = beside_peak(
+        tp_mesh_memory(cfg, "train", TRAIN_SEQ, TRAIN_BATCH, tc=tc),
+        out["peak_memory_bytes"])
+    return out
+
+
+# the collectives the tp path issues, which the probe must find working
+TP_NEEDS = ("all_reduce_sum", "all_reduce_max", "all_gather_into_tensor")
+
+
+def tp_rank_main(rank: int, world: int, tmp: Path, job: str) -> int:
+    """One rank of ``dist_tp``: gloo over a ``FileStore`` in ``tmp``, the
+    card as cuda:0; runs ``job`` and writes ``tmp/<job>-<rank>.json``:
+    ``legs<L>`` the probe (raising unless every collective of TP_NEEDS
+    works), the serve leg and the train leg at L layers, ``train<L>`` the
+    train leg alone.  A rank whose train leg ran out of memory exits with
+    code 3 after writing its result (its partner may wait in a
+    collective: the parent ends it)."""
+    import datetime
+    import faulthandler
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()            # a crash in native code names its line
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp / f"{job}-store"), world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TP_COLLECTIVE_TIMEOUT))
+    try:
+        result = {}
+        if job.startswith("legs"):
+            result["probe"] = {"collectives": tp_probe(rank, world),
+                               "device_mesh": tp_probe_mesh(world)}
+            for dt, ops in result["probe"]["collectives"].items():
+                for op in TP_NEEDS:
+                    if ops[op] != "ok":
+                        raise AssertionError(f"dist_tp probe: {op} {dt}: "
+                                             f"{ops[op]}")
+            result["serve"] = tp_rank_serve(rank, tmp)
+            # kept if the train leg's out-of-memory ends the partner
+            (tmp / f"{job}-{rank}.json").write_text(json.dumps(result))
+        elif not job.startswith("train"):
+            raise ValueError(f"dist_tp job {job!r}")
+        result["train"] = tp_rank_train(
+            int(job.removeprefix("legs").removeprefix("train")))
+        (tmp / f"{job}-{rank}.json").write_text(json.dumps(result))
+        if "oom" in result["train"]:
+            sys.stdout.flush()
+            os._exit(3)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_tp_ranks(tmp: Path, job: str) -> list:
+    """``job`` on TP_WORLD rank processes of this script -> each rank's
+    result (what it wrote before it was ended, or None, for a rank ended
+    because its partner ran out of memory); every rank bounded by
+    TP_RANK_TIMEOUT, and all ended once one has failed."""
+    procs = []
+    for r in range(TP_WORLD):
+        log = open(tmp / f"{job}-{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(r),
+             "--tp-world", str(TP_WORLD), "--tp-dir", str(tmp), "--tp-job",
+             job], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT), log))
+    deadline = time.monotonic() + TP_RANK_TIMEOUT
+    try:
+        while any(p.poll() is None for p, _ in procs) and \
+                not any(p.poll() for p, _ in procs) and \
+                time.monotonic() < deadline:
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+            log.close()
+    codes = [p.returncode for p, _ in procs]
+    out = [json.loads((tmp / f"{job}-{r}.json").read_text())
+           if (tmp / f"{job}-{r}.json").exists() else None
+           for r in range(TP_WORLD)]
+    if 3 in codes and all(c in (0, 3, -9) for c in codes) and \
+            any(o and "oom" in o.get("train", {}) for o in out):
+        return out
+    if any(c != 0 for c in codes):
+        text = "\n".join(f"rank {r} (exit {c}):\n" +
+                         (tmp / f"{job}-{r}.log").read_text()[-3000:]
+                         for r, c in enumerate(codes))
+        raise AssertionError(f"dist_tp {job}: ranks failed:\n{text}")
+    return out
+
+
+def logits_against(name: str, got: list, want: list, cfg) -> dict:
+    """Each step's logits within DIST_SERVE_TOL of ``want``'s (the
+    one-process ``LM``'s), and their argmax ``want``'s but at near ties
+    (as dist_serve's tp leg) -> the largest error and the flips."""
+    import torch
+
+    errs, flips = [], []
+    for s, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        if a.shape != b.shape:
+            raise AssertionError(f"dist_tp {name}: step {s} logits "
+                                 f"{tuple(a.shape)}, LM's {tuple(b.shape)}")
+        err = (a - b).abs()
+        errs.append(float(err.max()))
+        if bool((err > DIST_SERVE_TOL * (1 + b.abs())).any()):
+            raise AssertionError(f"dist_tp {name}: step {s} logits off by "
+                                 f"{errs[-1]} (tolerance {DIST_SERVE_TOL})")
+        mine, theirs = a.argmax(dim=-1), b.argmax(dim=-1)
+        for r in torch.nonzero(mine != theirs).ravel().tolist():
+            gap = float(b[r, theirs[r]] - b[r, mine[r]])
+            if gap > 2 * DIST_SERVE_TOL * (1 + float(b[r].abs().max())):
+                raise AssertionError(
+                    f"dist_tp {name}: step {s} row {r} takes id "
+                    f"{int(mine[r])}, LM's {int(theirs[r])}, {gap} apart")
+            flips.append({"step": s, "row": r, "gap": gap})
+    if len(got) != len(want):
+        raise AssertionError(f"dist_tp {name}: {len(got)} steps of logits, "
+                             f"LM's {len(want)}")
+    return {"max_abs_logit_err_vs_lm": max(errs), "near_tie_id_flips": flips}
+
+
+def tp_serve_report(tmp: Path, legs_by_rank: list, want: list, cfg,
+                    add_launches) -> dict:
+    """Checks the ranks' serve legs (launches, no gathered bytes, logits
+    against ``want``, ``LM``'s) and adds their prefill launches -> the
+    serve line's legs."""
+    import torch
+
+    want_prefill = expected_launches(cfg, TP_SERVE[2])
+    none = {k: 0 for k in want_prefill}
+    out = {}
+    for name in ("nosp", "sp"):
+        legs = [rec["legs"][name] for rec in legs_by_rank]
+        for r, leg in enumerate(legs):
+            if leg["prefill_launches"] != want_prefill or \
+                    leg["decode_launches"] != none:
+                raise AssertionError(
+                    f"dist_tp serve {name} rank {r}: prefill launches "
+                    f"{leg['prefill_launches']}, decode "
+                    f"{leg['decode_launches']}; expected {want_prefill} "
+                    f"and none")
+            if leg["gather_stats"]["prefill"]["gathered_bytes_peak"] or \
+                    leg["gather_stats"]["decode"]["gathered_bytes_peak"]:
+                raise AssertionError(f"dist_tp serve {name} rank {r} "
+                                     f"gathered parameters: "
+                                     f"{leg['gather_stats']}")
+            add_launches(leg["prefill_launches"])
+        got = torch.load(tmp / f"serve-logits-{int(name == 'sp')}.pt")
+        check = logits_against(f"serve {name}", got, want, cfg)
+        pre_b, pre_s = collective_totals(legs[0]["collectives"]["prefill"])
+        dec_b, dec_s = collective_totals(
+            legs[0]["collectives"]["decode_all_steps"])
+        out[name] = {
+            **check, "ranks": legs,
+            "prefill_collective_bytes": pre_b,
+            "prefill_collective_share": pre_s / legs[0]["prefill_seconds"],
+            "decode_collective_bytes_per_step": dec_b / GEN,
+            "decode_collective_share": dec_s / legs[0]["decode_seconds"]}
+    return out
+
+
+def norm_gaps(h: dict, w: dict) -> dict:
+    """One train step's ``h`` against ``w``: the loss's gap relative to
+    max(1, |loss|), the grad norm's relative gap, and the largest relative
+    gap of one leaf's gradient norm, with its leaf."""
+    def rel(a, b):
+        return abs(a - b) / b if b else (0.0 if a == b else math.inf)
+    leaves = {k: rel(math.sqrt(h["grad_sq"][k]), math.sqrt(b))
+              for k, b in w["grad_sq"].items()}
+    worst = max(leaves, key=leaves.get)
+    return {"loss": abs(h["loss"] - w["loss"]) / max(1.0, abs(w["loss"])),
+            "grad_norm": rel(h["grad_norm"], w["grad_norm"]),
+            "leaf_norm": leaves[worst], "leaf": worst}
+
+
+def tp_train_report(layers: int, ranks: list, ref: dict, rev: dict,
+                    add_launches) -> dict:
+    """Checks the ranks' train legs at ``layers`` against world size 1's
+    ``ref`` (launches, no gathered bytes, loss within REMAT_TOL, grad norm
+    within TP_GRAD_NORM_RTOL, each leaf's gradient norm within
+    TP_LEAF_NORM_RTOL), beside world size 1's with reversed rows ``rev``,
+    and adds their launches -> the depth's record."""
+    cfg, _, _, _ = tp_train_setup(layers)
+    want_step = train_launches(cfg, TRAIN_SEQ)
+    for r, rec in enumerate(ranks):
+        if rec["gather_stats"]["gathered_bytes_peak"]:
+            raise AssertionError(f"dist_tp train rank {r} gathered "
+                                 f"parameters: {rec['gather_stats']}")
+        for s, (h, w) in enumerate(zip(rec["steps"], ref["steps"])):
+            if h["launches"] != want_step:
+                raise AssertionError(f"dist_tp train rank {r} step {s}: "
+                                     f"launches {h['launches']}, expected "
+                                     f"{want_step}")
+            add_launches(h["launches"])
+            gap = norm_gaps(h, w)
+            if gap["loss"] > REMAT_TOL or \
+                    gap["grad_norm"] > TP_GRAD_NORM_RTOL or \
+                    gap["leaf_norm"] > TP_LEAF_NORM_RTOL:
+                raise AssertionError(
+                    f"dist_tp train rank {r} step {s}: loss {h['loss']}, "
+                    f"grad norm {h['grad_norm']}; world size 1: "
+                    f"{w['loss']}, {w['grad_norm']}; gaps {gap}")
+    steps = ranks[0]["steps"]
+    return {
+        "layers": layers, "fits": True,
+        "losses": [h["loss"] for h in steps],
+        "grad_norms": [h["grad_norm"] for h in steps],
+        "world_size_1": {"losses": [h["loss"] for h in ref["steps"]],
+                         "grad_norms": [h["grad_norm"] for h in ref["steps"]],
+                         "seconds_per_step": [h["seconds"]
+                                              for h in ref["steps"]],
+                         "peak_memory_bytes": ref["peak_memory_bytes"]},
+        "gaps": [norm_gaps(h, w) for h, w in zip(steps, ref["steps"])],
+        "reversed_rows_gaps": [norm_gaps(h, w) for h, w in
+                               zip(rev["steps"], ref["steps"])],
+        "seconds_per_step": [h["seconds"] for h in steps],
+        "collective_bytes_per_step": [collective_totals(h["collectives"])[0]
+                                      for h in steps],
+        "collective_share": [collective_totals(h["collectives"])[1]
+                             / h["seconds"] for h in steps],
+        "ranks": [{**r, "steps": [{k: v for k, v in h.items()
+                                   if k != "grad_sq"} for h in r["steps"]]}
+                  for r in ranks]}
+
+
+def phase_dist_tp(tmp: Path) -> dict:
+    """Tensor-parallel compute over ``model`` (``repro_torch.distributed.
+    tensor_parallel``) on the card: TP_WORLD ranks as processes of this
+    script on the one card, gloo over CUDA tensors (NCCL refuses two ranks
+    on one device) with a ``FileStore`` rendezvous, a (1, 2) ("data",
+    "model") mesh from ``make_dev_mesh(..., backend="gloo")``.
+    1. probe: which gloo collectives take CUDA tensors here, bf16 and f32;
+       the phase needs all_reduce (sum, max) and all_gather_into_tensor;
+    2. serve: full yi-6b (batch 4, prompt 2048, GEN steps), seeded bf16
+       weights: ``LM.prefill``/``decode_step`` in this process first (its
+       logits kept on the host, the model freed), then the tp steps on the
+       ranks with ``sp_decode`` off and on, driven by ``LM``'s ids: logits
+       within DIST_SERVE_TOL of ``LM``'s, greedy ids ``LM``'s but at near
+       ties; each rank's prefill launches flash once a layer (at its 16 of
+       32 q heads over 2 of 4 kv heads), its decode none;
+    3. train: minicpm-2b at full width, DIST_STEPS steps of the tp step
+       on the ranks against ``build_train_step`` at world size 1 (NCCL, in
+       this process, run first and freed, then again with each batch's
+       rows reversed) on the same weights and batches, at the first depth
+       of TP_TRAIN_LAYERS at which both ranks fit the card (each
+       out-of-memory recorded): loss within REMAT_TOL, grad norm within
+       TP_GRAD_NORM_RTOL and each leaf's gradient norm within
+       TP_LEAF_NORM_RTOL; flash forward and backward
+       once a layer a step on each rank, at 18 of 36 heads.
+    Prints each leg's seconds, each rank's peak memory beside
+    ``model_memory`` for tp on (1, 2), and the bytes the collectives moved
+    and their share of the step (timed between synchronises of the card).
+    gloo's CUDA collectives go through host memory: these are not NCCL's
+    times.  Returns the kernels' launches of both ranks' steps."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import LM
+
+    t_phase = time.perf_counter()
+    path_launches: dict = {}
+
+    def add_launches(got: dict) -> None:
+        for k, n in got.items():
+            path_launches[k] = path_launches.get(k, 0) + n
+
+    # the one-process arms run first, each freed before the ranks start:
+    # LM serving, then build_train_step at world size 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, batch, prompt = TP_SERVE
+    cfg = serve_config(arch)
+    total = prompt + GEN
+    pshape = ShapeConfig("smoke", "prefill", prompt, batch)
+    tokens = torch.from_numpy(TokenPipeline(cfg, pshape, seed=SEED)
+                              .prefill_batch(0)["tokens"]).cuda()
+    lm = LM(cfg, max_seq=total, device="cuda")
+    lm.init(SEED, torch.bfloat16)
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(tokens, cache_len=total)
+    torch.cuda.synchronize()
+    lm_prefill = time.perf_counter() - t0
+    want, ids = [logits.float().cpu()], []
+    tok = logits.argmax(dim=-1)[:, None]
+    for _ in range(GEN):
+        ids.append(tok)
+        logits, cache = lm.decode_step(cache, tok)
+        want.append(logits.float().cpu())
+        tok = logits.argmax(dim=-1)[:, None]
+    ids = torch.cat(ids, dim=1)
+    torch.save({"tokens": tokens.cpu(), "ids": ids.cpu()},
+               tmp / "serve-inputs.pt")
+    del lm, logits, cache, tok, tokens
+
+    tried, serve_legs, probe = [], None, None
+    for layers in TP_TRAIN_LAYERS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(tmp / f"tp-ref-store-{layers}"), 1), rank=0, world_size=1,
+            device_id=torch.device("cuda", 0))
+        try:
+            ref = tp_train_steps(make_dev_mesh(1, 1, device="cuda"), layers)
+            gc.collect()
+            torch.cuda.empty_cache()
+            rev = tp_train_steps(make_dev_mesh(1, 1, device="cuda"), layers,
+                                 reverse=True)
+        finally:
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = run_tp_ranks(tmp, f"{'train' if tried else 'legs'}{layers}")
+        if serve_legs is None:
+            if any(r is None for r in ranks):
+                raise AssertionError("dist_tp: a rank was ended before its "
+                                     "serve leg was written")
+            probe = ranks[0]["probe"]
+            serve_legs = tp_serve_report(tmp, [r["serve"] for r in ranks],
+                                         want, cfg, add_launches)
+            emit({"phase": "dist_tp", "leg": "serve", "card": card_line(),
+                  "probe": probe, "arch": arch, "batch": batch,
+                  "prompt_len": prompt, "gen": GEN, "dtype": "bfloat16",
+                  "mesh": {"data": 1, "model": TP_WORLD}, "backend": "gloo",
+                  "tolerance": DIST_SERVE_TOL,
+                  "lm_prefill_seconds": lm_prefill,
+                  "local_param_bytes": [r["serve"]["local_param_bytes"]
+                                        for r in ranks],
+                  "legs": serve_legs, "ids_sample": ids[0, :8].tolist(),
+                  "note": "gloo's CUDA collectives go through host memory: "
+                          "not NCCL's times"})
+        trains = [None if r is None else r.get("train") for r in ranks]
+        if any(r is None or "oom" in r for r in trains):
+            tried.append({"layers": layers, "fits": False,
+                          "out_of_memory": [r and r.get("oom")
+                                            for r in trains]})
+            continue
+        tried.append(tp_train_report(layers, trains, ref, rev,
+                                     add_launches))
+        break
+    else:
+        raise AssertionError(f"dist_tp train: no depth of {TP_TRAIN_LAYERS} "
+                             f"fits: {tried}")
+    emit({"phase": "dist_tp", "leg": "train", "card": card_line(),
+          "arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "lr": TRAIN_LR, "steps": DIST_STEPS, "dtype": "bfloat16",
+          "mesh": {"data": 1, "model": TP_WORLD}, "backend": "gloo",
+          "layers": tried[-1]["layers"],
+          "tolerance": {"loss": REMAT_TOL, "grad_norm_rtol":
+                        TP_GRAD_NORM_RTOL, "leaf_norm_rtol":
+                        TP_LEAF_NORM_RTOL},
+          "depths": tried,
+          "note": "gloo's CUDA collectives go through host memory: not "
+                  "NCCL's times",
+          "seconds": time.perf_counter() - t_phase})
+    return path_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (no result line)")
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-job", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank, args.tp_world, Path(args.tp_dir),
+                            args.tp_job)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -4182,6 +4951,8 @@ def main() -> int:
         by_path["dist_train"] = phase_dist_train(Path(tmp))
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         by_path["dist_serve"] = phase_dist_serve(Path(tmp))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        by_path["dist_tp"] = phase_dist_tp(Path(tmp))
     for r in rows:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in by_path.items()
                                  if r["name"] in n}

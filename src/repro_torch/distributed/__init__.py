@@ -2,7 +2,8 @@
 # trees, the data-parallel train step and the serve steps (DistContext,
 # make_rules, shard, the sharding trees, build_train_step with FSDP and
 # ZeRO-1, build_prefill_step, build_decode_step, cache_specs and
-# sp_decode_attention; fsdp.py, the steps' per-unit gather), and the
+# sp_decode_attention; fsdp.py, the steps' per-unit gather;
+# tensor_parallel.py, the tp steps' operators over 'model'), and the
 # fault-tolerance runtime of the fleet plane.  context is imported first:
 # the model modules import it while this package may still be loading.
 from repro_torch.distributed.context import (

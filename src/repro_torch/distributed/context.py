@@ -15,6 +15,7 @@ mesh dimension.
 """
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Any
@@ -108,14 +109,12 @@ class DistContext:
     mesh: Any                       # DeviceMesh, or {axis: size} for specs
     rules: dict[str, Any]
     sp_decode: bool = True          # sequence-parallel decode attention
-    vocab_parallel: bool = False    # Megatron-style vocab-parallel embed, loss
+    # kept and never read, as in the reference: a tp step splits the vocab
+    # over 'model' by its rules (distributed/tensor_parallel.py)
+    vocab_parallel: bool = False
     extra: dict = field(default_factory=dict)   # "moe_impl" (models/moe.py)
-
-    def __post_init__(self):
-        if self.vocab_parallel:
-            raise NotImplementedError(
-                "vocab_parallel (a vocab-parallel embedding and loss over "
-                "the 'model' axis) is not ported yet (ROADMAP A10b)")
+    # process groups over several mesh axes, made once (:meth:`group`)
+    _groups: dict = field(default_factory=dict, repr=False, compare=False)
 
     @classmethod
     def create(cls, cfg, mesh, *, sp_decode: bool = True,
@@ -175,7 +174,10 @@ class DistContext:
         """The process group over the mesh axes ``axes``, ranks in mesh
         order: ``None`` when every one of them has size 1, the axis's own
         group for one axis of size > 1, the whole mesh's group when the
-        axes hold every mesh axis of size > 1 and the mesh is the world."""
+        axes hold every mesh axis of size > 1 and the mesh is the world.
+        Otherwise (the multipod mesh's ("pod", "data") batch group) a group
+        a slice of the mesh, made with ``dist.new_group`` by every rank
+        together at the first call for those axes and kept."""
         live = [a for a in self.axes if self.axes[a] > 1]
         mine = [a for a in live if a in axes]
         if not mine:
@@ -185,8 +187,21 @@ class DistContext:
         ranks = self.mesh.mesh.flatten().tolist()
         if mine == live and ranks == list(range(dist.get_world_size())):
             return dist.group.WORLD
-        raise NotImplementedError(
-            f"a process group over {tuple(mine)} of the mesh {self.axes}")
+        key = tuple(mine)
+        if key not in self._groups:
+            names = list(self.axes)
+            keep = [names.index(a) for a in mine]
+            rest = [i for i in range(len(names)) if i not in keep]
+            # one slice per coordinate of the other axes, ranks in mesh
+            # order (the kept axes' major first)
+            slices = self.mesh.mesh.permute(rest + keep).reshape(
+                -1, math.prod(self.axes[a] for a in mine))
+            me = dist.get_rank()
+            for sl in slices.tolist():
+                g = dist.new_group(sl)
+                if me in sl:
+                    self._groups[key] = g
+        return self._groups[key]
 
     def batch_group(self):
         """The process group the batch rows are split over (the mesh axes

@@ -86,11 +86,13 @@ class Split:
     group: object
 
 
-def split_of(ctx, placements) -> Split:
-    """The :class:`Split` of DTensor ``placements`` on ``ctx``'s mesh."""
+def split_of(ctx, placements, in_place: tuple = ()) -> Split:
+    """The :class:`Split` of DTensor ``placements`` on ``ctx``'s mesh; a
+    split over an axis of ``in_place`` is left out: the model reads that
+    block as it is (a tp step's ``model`` axis)."""
     live = [(name, p, c) for (name, size), p, c in
             zip(ctx.axes.items(), placements, ctx.mesh.get_coordinate())
-            if size > 1 and isinstance(p, Shard)]
+            if size > 1 and isinstance(p, Shard) and name not in in_place]
     if not live:
         return Split(None, 1, 0, (), None)
     dims = {p.dim for _, p, _ in live}
@@ -125,6 +127,19 @@ def _refs(x) -> list:
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
+
+
+def read_shapes(params, splits: dict) -> dict:
+    """{path: the shape the model reads a leaf as}: this rank's local
+    tensor with the dimension its :class:`Split` divides restored (the
+    full shape, but for a dimension split over an axis read in place)."""
+    out = {}
+    for k, p in tree_flatten_with_path(params):
+        shape, sp = list(p.to_local().shape), splits[k]
+        if sp.dim is not None:
+            shape[sp.dim] *= sp.n
+        out[k] = tuple(shape)
+    return out
 
 
 class _Gathered(torch.autograd.Function):
@@ -212,8 +227,9 @@ class UnitGather:
     def __init__(self, params, splits: dict, sink=None):
         self.splits, self.sink = splits, sink
         self.local = {k: p.to_local() for k, p in tree_flatten_with_path(params)}
+        shapes = read_shapes(params, splits)
         self.refs = tree_map_with_path(
-            lambda k, p: Ref(k, None, tuple(p.shape), p.dtype), params)
+            lambda k, p: Ref(k, None, shapes[k], p.dtype), params)
         self.anchor = None
         self.uses: dict = {}
         self.held: dict = {}
@@ -354,21 +370,21 @@ class GradShards:
     """A step's gradients at the optimizer's placements, from the full
     gradients a :class:`UnitGather` hands it (module docstring).
 
-    ``params``: the DTensor parameters (their shapes); ``splits``: each
-    leaf's :class:`Split` of its optimizer placement; ``batch_axes``,
-    ``group``: the live mesh axes and the process group the batch rows are
-    split over (None: every rank holds the whole gradient);
-    ``n_micro``: the microbatches, summed in f32 when above 1 (each full
-    gradient cast to f32 before its collective), else kept in the
-    parameters' dtype."""
+    ``params``: the DTensor parameters (their dtypes and device);
+    ``shapes``: the shape the model reads each leaf as (:func:`read_shapes`
+    of the parameters' splits); ``splits``: each leaf's :class:`Split` of
+    its optimizer placement; ``batch_axes``, ``group``: the live mesh axes
+    and the process group the batch rows are split over (None: every rank
+    holds the whole gradient); ``n_micro``: the microbatches, summed in f32
+    when above 1 (each full gradient cast to f32 before its collective),
+    else kept in the parameters' dtype."""
 
-    def __init__(self, params, splits: dict, batch_axes: tuple, group,
-                 n_micro: int):
+    def __init__(self, params, shapes: dict, splits: dict, batch_axes: tuple,
+                 group, n_micro: int):
         self.splits, self.group, self.n_micro = splits, group, n_micro
         self.batch_axes = batch_axes
         self.n_ranks = 1 if group is None else dist.get_world_size(group)
-        self.shapes = {k: tuple(p.shape) for k, p in
-                       tree_flatten_with_path(params)}
+        self.shapes = shapes
         self.dtype = {k: p.dtype for k, p in tree_flatten_with_path(params)}
         self.device = next(iter(tree_flatten_with_path(params)))[1].device
         self.acc: dict = {}

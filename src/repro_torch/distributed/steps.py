@@ -8,8 +8,8 @@ collectives.  Here every rank runs a step on local tensors and moves the
 data itself:
 
 - the parameters are DTensors at :func:`~.sharding.params_shardings`'
-  placements (FSDP: sharded over every mesh axis; ``tp`` with a ``model``
-  axis of 1: replicated, but for EP's expert ff dim over the data axes),
+  placements (FSDP: sharded over every mesh axis; ``tp``: split over
+  ``model`` by the rules, but for EP's expert ff dim over the data axes),
   m, v and master at :func:`~.sharding.opt_shardings`' (FSDP, or ZeRO-1:
   sharded over the data ranks), the step count a replicated tensor;
 - one step runs ``LM.loss`` and its backward on this rank's rows of each
@@ -65,9 +65,20 @@ step updates the local caches in place.  The logits come out at
 attention layers decode through
 :func:`~.decode_attn.sp_decode_attention`.
 
-``mode="tp"`` with a ``model`` axis above 1 needs tensor-parallel compute
-over that axis, which the port does not have yet (ROADMAP A10b-4): every
-step builder raises there.  ``build_decode_step`` in ``fsdp`` with
+``mode="tp"`` with a ``model`` axis above 1 runs tensor-parallel compute
+over that axis for the dense and vlm families
+(:mod:`~.tensor_parallel`): each rank reads its block of every leaf the
+rules split over ``model`` (heads, kv heads, mlp, the padded vocab) in
+place, never gathered (``split_of``'s ``in_place``), the context reaches
+the model, whose products meet the whole residual stream through the
+``model`` group's all-reduces (a leaf replicated over ``model`` that
+each rank uses for its own heads only has its gradient summed over
+``model`` there: ``transformer._partly_used``).
+The logits leave as this rank's vocab block; a prefill's cache, written
+whole on every rank, leaves as this rank's block of its slots under
+``sp_decode``.  Every step builder raises there for the ssm, hybrid, moe
+and encdec families, whose layers have no tensor-parallel compute yet
+(ROADMAP A10b-4b).  ``build_decode_step`` in ``fsdp`` with
 ``ctx.sp_decode`` raises for a config whose decode reaches
 ``sp_decode_attention``, where the reference fails too.
 """
@@ -83,7 +94,10 @@ from torch.distributed.tensor import zeros as dzeros
 
 from repro_torch.core.reducer import tree_flatten_with_path, tree_map_with_path
 from repro_torch.distributed.context import DistContext
-from repro_torch.distributed.fsdp import GradShards, UnitGather, split_of
+from repro_torch.distributed import tensor_parallel
+from repro_torch.distributed.fsdp import (
+    GradShards, UnitGather, read_shapes, split_of,
+)
 from repro_torch.distributed.sharding import (
     map_tree, axes_tree, batch_pspec, batch_shardings, cache_shardings,
     data_axes, opt_shardings, params_shardings, shapes_tree,
@@ -130,12 +144,18 @@ def cache_specs(lm, B: int, cache_len: int, dtype=torch.bfloat16) -> dict:
     return map_tree(lambda t: TensorSpec(tuple(t.shape), t.dtype), cache)
 
 
-def _check_mode(ctx: DistContext) -> None:
-    if ctx.mode == "tp" and ctx.axes.get("model", 1) > 1:
+# the families whose layers have no tensor-parallel compute over 'model' yet
+NOT_TP = ("ssm", "hybrid", "moe", "encdec")
+
+
+def _check_mode(ctx: DistContext, cfg) -> None:
+    if ctx.mode == "tp" and ctx.axes.get("model", 1) > 1 and \
+            cfg.family in NOT_TP:
         raise NotImplementedError(
-            "mode='tp' with a 'model' axis above 1 needs tensor-parallel "
-            "compute over it, which is not ported yet (ROADMAP A10b-4); use "
-            "mode='fsdp', or a 'model' axis of 1 (data parallel)")
+            f"{cfg.name}: mode='tp' with a 'model' axis above 1 needs "
+            f"tensor-parallel compute in the {cfg.family} family's layers, "
+            f"which is not ported yet (ROADMAP A10b-4b); use mode='fsdp', "
+            f"or a 'model' axis of 1 (data parallel)")
 
 
 # ----------------------------------------------------------------------
@@ -150,14 +170,15 @@ def _named_axes(spec) -> set:
 def distribute_tree(tree, ctx: DistContext, specs):
     """Full tensors (the same on every rank) -> DTensors at ``specs``.  A
     leaf whose spec names no mesh axis of more than one rank is its own
-    local tensor (aliased, not copied); the others are split by
-    ``distribute_tensor``, which copies."""
+    local tensor (aliased, not copied); each rank copies its block of the
+    others out of its own full tensor (``distribute_tensor`` with
+    ``src_data_rank=None``: nothing is sent)."""
     def one(t, s):
         pl = ctx.placements(s)
         if all(ctx.axes[a] == 1 for a in _named_axes(s)):
             return DTensor.from_local(t, ctx.mesh, pl, run_check=False,
                                       shape=t.shape, stride=t.stride())
-        return distribute_tensor(t, ctx.mesh, pl)
+        return distribute_tensor(t, ctx.mesh, pl, src_data_rank=None)
     return map_tree(one, tree, specs)
 
 
@@ -198,9 +219,12 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
     ``OptState`` of DTensors at ``opt_specs`` (:func:`init_sharded_opt_state`),
     ``batch`` the global batch (the same arrays on every rank; each rank
     reads its rows).  m, v and master are updated in place, as
-    ``adamw_update`` does."""
+    ``adamw_update`` does.  ``step_fn.gather_stats``: the last step's
+    gather statistics; ``step_fn.grad_sq``: {path: the last step's sum of
+    squares of that leaf's gradient over every rank}, the terms of the
+    grad norm (device scalars)."""
     cfg = lm.cfg
-    _check_mode(ctx)
+    _check_mode(ctx, cfg)
     n_micro = max(tc.microbatches, 1)
     B = shape.global_batch
     axes, shapes = axes_tree(lm.spec), shapes_tree(lm.spec)
@@ -219,9 +243,10 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
         raise ValueError(f"a batch of {B} rows in {n_micro} microbatches "
                          f"does not split over {n_ranks} ranks")
     rows = B // n_micro // n_ranks
-    # the context reaches the moe layers where the batch is split, and
-    # always under local routing, whose capacity is its own
-    loss_ctx = (ctx if group is not None
+    # the context reaches the moe layers where the batch is split, always
+    # under local routing, whose capacity is its own, and the layers that
+    # split their compute over a 'model' axis above one rank
+    loss_ctx = (ctx if group is not None or ctx.axes.get("model", 1) > 1
                 or ctx.extra.get("moe_impl") == "shardmap" else None)
     p_pl = {k: ctx.placements(s) for k, s in spec_leaves(p_sh)}
     o_pl = {k: ctx.placements(s) for k, s in spec_leaves(o_sh.m)}
@@ -237,11 +262,13 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
                    if isinstance(pl, Replicate)))
          for k in o_pl] if coord is not None else [], dtype=torch.float32)
 
+    grad_sq = {}
+
     def norm_reduce(sq):
-        if norm_group is None:
-            return sq
-        sq = sq * once.to(sq.device)
-        dist.all_reduce(sq, group=norm_group)
+        if norm_group is not None:
+            sq = sq * once.to(sq.device)
+            dist.all_reduce(sq, group=norm_group)
+        grad_sq.update(zip(o_pl, sq))
         return sq
 
     def place(t, src, dst, like):
@@ -251,7 +278,8 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
                                   ).redistribute(mesh, dst)
 
     def step_fn(params, opt: OptState, batch):
-        sink = GradShards(params, o_split(), batch_axes, group, n_micro)
+        sink = GradShards(params, read_shapes(params, p_split()), o_split(),
+                          batch_axes, group, n_micro)
         stats.clear()
         loss = None
         for i in range(n_micro):
@@ -292,6 +320,7 @@ def build_train_step(lm, tc, ctx: DistContext, shape):
                 {"loss": loss, **metrics})
 
     step_fn.gather_stats = stats
+    step_fn.grad_sq = grad_sq
     return step_fn, (p_sh, o_sh, b_sh)
 
 
@@ -317,8 +346,11 @@ def _serve_layout(lm, ctx: DistContext, shape):
 
 def _splits(ctx: DistContext, specs) -> dict:
     """Each parameter's :class:`~.fsdp.Split`, by path (read from the
-    mesh at a step's first call: a step is built without ranks too)."""
-    return {k: split_of(ctx, ctx.placements(s))
+    mesh at a step's first call: a step is built without ranks too).  A
+    tp step reads its blocks over ``model`` in place (tensor-parallel
+    compute, ``tensor_parallel.py``)."""
+    in_place = ("model",) if ctx.mode == "tp" else ()
+    return {k: split_of(ctx, ctx.placements(s), in_place)
             for k, s in spec_leaves(specs)}
 
 
@@ -326,6 +358,24 @@ def _place(ctx: DistContext, t, spec):
     """This rank's block of an evenly split tensor -> a DTensor at spec."""
     return DTensor.from_local(t, ctx.mesh, ctx.placements(spec),
                               run_check=False)
+
+
+def _own_slots(ctx: DistContext, cache: dict, specs: dict) -> dict:
+    """A cache written whole on every rank (its rows this rank's) -> this
+    rank's block of each dimension its spec splits over ``model`` (the
+    slots under ``sp_decode``), copied out so the whole one is freed."""
+    group = tensor_parallel.model_group(ctx)
+    if group is None:
+        return cache
+
+    def one(t, spec):
+        for d, e in enumerate(spec):
+            if e == "model" or (isinstance(e, tuple) and "model" in e):
+                n = t.shape[d] // dist.get_world_size(group)
+                t = t.narrow(d, dist.get_rank(group) * n, n).clone()
+        return t
+    return {**map_tree(one, {k: cache[k] for k in specs}, specs),
+            "filled": cache["filled"]}
 
 
 def _place_cache(ctx: DistContext, cache: dict, specs: dict) -> dict:
@@ -356,7 +406,7 @@ def build_prefill_step(lm, ctx: DistContext, shape,
     logits (B, V) a DTensor at ``logits_spec``, the cache of ``cache_len``
     slots (``shape.seq_len`` by default) DTensors at ``cache_specs`` and
     its ``filled`` count."""
-    _check_mode(ctx)
+    _check_mode(ctx, lm.cfg)
     cache_len = cache_len or shape.seq_len
     (p_sh, b_sh, c_sh, logits_sh), lo, rows = _serve_layout(lm, ctx, shape)
     splits = functools.cache(functools.partial(_splits, ctx, p_sh))
@@ -369,7 +419,8 @@ def build_prefill_step(lm, ctx: DistContext, shape,
                                    params=gather.refs, ctx=ctx,
                                    gather=gather, **local)
         prefill_fn.gather_stats = gather.stats
-        return _place(ctx, logits, logits_sh), _place_cache(ctx, cache, c_sh)
+        return _place(ctx, logits, logits_sh), _place_cache(
+            ctx, _own_slots(ctx, cache, c_sh), c_sh)
 
     return prefill_fn, (p_sh, b_sh, logits_sh, c_sh)
 
@@ -382,8 +433,8 @@ def build_decode_step(lm, ctx: DistContext, shape):
     :func:`build_prefill_step` returns it (updated in place and returned
     with its ``pos`` and ``filled`` advanced), ``batch["token"]`` the
     global (B, 1) tokens."""
-    _check_mode(ctx)
     cfg = lm.cfg
+    _check_mode(ctx, cfg)
     if ctx.mode == "fsdp" and ctx.sp_decode and _reaches_sp_decode(cfg):
         raise ValueError(
             f"{cfg.name}: a decode step in mode='fsdp' with sp_decode "

@@ -3,8 +3,10 @@
 Both build a ``DeviceMesh`` over the default process group, which the
 caller starts (``torch.distributed.init_process_group``, with its own
 address, world size and rank): NCCL for ``device="cuda"`` (the default,
-which raises without a card), gloo for ``device="cpu"``.  The ranks lie
-on the mesh in row-major order, rank ``i * n_model + j`` at (i, j).
+which raises without a card), gloo for ``device="cpu"``, unless the
+caller names the backend (``backend="gloo"`` over CUDA tensors: several
+ranks on one card, which NCCL refuses).  The ranks lie on the mesh in
+row-major order, rank ``i * n_model + j`` at (i, j).
 """
 from __future__ import annotations
 
@@ -16,15 +18,16 @@ from repro_torch.device import resolve_device
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
-def _mesh(shape: tuple, names: tuple, device) -> DeviceMesh:
+def _mesh(shape: tuple, names: tuple, device,
+          backend: str | None = None) -> DeviceMesh:
     dev = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError("start the process group first "
                            "(torch.distributed.init_process_group)")
-    backend = dist.get_backend()
-    if backend != BACKENDS[dev.type]:
-        raise RuntimeError(f"a {dev.type} mesh runs on {BACKENDS[dev.type]}, "
-                           f"but the process group's backend is {backend}")
+    want = backend or BACKENDS[dev.type]
+    if dist.get_backend() != want:
+        raise RuntimeError(f"a {dev.type} mesh runs on {want}, but the "
+                           f"process group's backend is {dist.get_backend()}")
     n = 1
     for s in shape:
         n *= s
@@ -42,6 +45,8 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
     return _mesh(shape, names, device)
 
 
-def make_dev_mesh(n_data: int = 2, n_model: int = 4, device="cuda"):
-    """A small ("data", "model") mesh (the tests' CPU ranks, one card)."""
-    return _mesh((n_data, n_model), ("data", "model"), device)
+def make_dev_mesh(n_data: int = 2, n_model: int = 4, device="cuda",
+                  backend: str | None = None):
+    """A small ("data", "model") mesh (the tests' CPU ranks, one card, or
+    several ranks on one card with ``backend="gloo"``)."""
+    return _mesh((n_data, n_model), ("data", "model"), device, backend)

@@ -56,6 +56,21 @@ def qkv_project(p, x, cfg, positions):
     return q, k, v
 
 
+def kv_for_heads(k, v, dim: int, first: int, n_heads: int, group: int):
+    """The kv heads that q heads [first, first + n_heads) read, from k/v
+    holding every kv head on ``dim`` (GQA: q head h reads kv head
+    h // group): a slice where those q heads fall on their kv heads in
+    equal runs (a tp rank's block of the heads when the kv heads are not
+    split), else one kv head a q head, gathered."""
+    idx = [(first + i) // group for i in range(n_heads)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if n_heads % n == 0 and idx == [lo + i // (n_heads // n)
+                                    for i in range(n_heads)]:
+        return k.narrow(dim, lo, n), v.narrow(dim, lo, n)
+    at = torch.tensor(idx, device=k.device)
+    return k.index_select(dim, at), v.index_select(dim, at)
+
+
 def prefill_attention(q, k_heads, v_heads, *, causal: bool = True):
     """Attention over a whole prompt through flash, causal (a decoder's
     prefill) or unmasked (the whisper encoder).  q (B,S,H,hd); k/v already

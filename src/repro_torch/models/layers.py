@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
+
 
 @dataclasses.dataclass(frozen=True)
 class P:
@@ -134,10 +136,16 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
-def swiglu(x, w_gate, w_up, w_down):
+def swiglu(x, w_gate, w_up, w_down, ctx=None):
+    """The SwiGLU MLP; under a tp context with a ``model`` axis above one
+    rank the weights are this rank's mlp block (w_gate, w_up columns,
+    w_down rows): ``x`` enters through ``to_model`` and the partial
+    output leaves through ``from_model``."""
+    group = tp.model_group(ctx)
+    x = tp.to_model(x, group)
     g = x @ w_gate
     u = x @ w_up
-    return (silu(g) * u) @ w_down
+    return tp.from_model((silu(g) * u) @ w_down, group)
 
 
 # ----------------------------------------------------------------------
@@ -205,18 +213,28 @@ def embed_spec(cfg):
     return P((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), scale=0.02)
 
 
-def embed_lookup(table, ids):
-    return table[ids]
+def embed_lookup(table, ids, ctx=None):
+    """The embedding rows of ``ids``; under a tp context with a ``model``
+    axis above one rank ``table`` is this rank's vocab block
+    (``tensor_parallel.vocab_embed``)."""
+    return tp.vocab_embed(table, ids, tp.model_group(ctx))
 
 
-def logits_from_embed(x, table):
-    return x @ table.T
+def logits_from_embed(x, table, ctx=None):
+    """``x @ table.T``; under a tp context, this rank's vocab block of the
+    logits (``x`` enters through ``to_model``)."""
+    return tp.to_model(x, tp.model_group(ctx)) @ table.T
 
 
-def softmax_xent(logits, labels, vocab_size: int):
+def softmax_xent(logits, labels, vocab_size: int, ctx=None):
     """Mean next-token cross entropy over tokens, in f32; the padded-vocab
     columns (``>= vocab_size``) are set to -1e30 (never -inf), so they add
-    nothing to the log-sum-exp and get exactly 0 gradient."""
+    nothing to the log-sum-exp and get exactly 0 gradient.  Under a tp
+    context ``logits`` is this rank's vocab block
+    (``tensor_parallel.vocab_xent``)."""
+    group = tp.model_group(ctx)
+    if group is not None:
+        return tp.vocab_xent(logits, labels, vocab_size, group)
     lf = logits.float()
     col = torch.arange(lf.shape[-1], device=lf.device)
     lf = torch.where(col < vocab_size, lf, lf.new_full((), -1e30))

@@ -98,7 +98,7 @@ class LM:
         ``gather`` as :meth:`loss` takes them."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = gather.run(embed_lookup, params["embed"], tokens)
+        x = gather.run(embed_lookup, params["embed"], tokens, ctx)
         if cfg.family == "encdec":
             enc = encdec.encoder_forward(
                 params, self._input(encoder_frames, "encoder_frames"), cfg,
@@ -128,9 +128,11 @@ class LM:
         return gather.run(lambda w: rms_norm(x, w, self.cfg.norm_eps),
                           params["ln_f"])
 
-    def _logits(self, params, x, gather=WHOLE):
+    def _logits(self, params, x, gather=WHOLE, ctx=None):
+        """The logits of ``x``; under a tp context with a ``model`` axis
+        above one rank, this rank's block of the padded vocab."""
         return gather.run(
-            lambda w: logits_from_embed(x, w),
+            lambda w: logits_from_embed(x, w, ctx),
             params["embed"] if self.cfg.tie_embeddings else params["w_out"])
 
     def _prompt_cache(self, tokens, cache_len, vision_embeds, encoder_frames,
@@ -174,7 +176,12 @@ class LM:
         ``ctx``: the ``DistContext`` of a data-parallel step whose batch
         rows are split over its batch group, ``batch`` this rank's rows:
         the moe layers then route the group's tokens, as the reference's
-        step does (:mod:`repro_torch.models.moe`).  ``remat``: none, dots
+        step does (:mod:`repro_torch.models.moe`); under tp with a
+        ``model`` axis above one rank, ``params`` this rank's blocks of
+        the heads, mlp and vocab, the embedding, the logits and the cross
+        entropy vocab-split (``distributed/tensor_parallel.py``), the
+        tied embedding's two gradients on its local vocab block.
+        ``remat``: none, dots
         or full, the reference's activation checkpointing of each decoder
         scan body (:func:`repro_torch.models.transformer.decoder_forward`;
         the encdec family's decoder has none, as in the reference).
@@ -187,10 +194,10 @@ class LM:
         inp, labels = tokens[:, :-1], tokens[:, 1:]
         x, aux = self._hidden(params, inp, None, batch.get("vision_embeds"),
                               batch.get("encoder_frames"), ctx, remat, gather)
-        logits = self._logits(params, x, gather)
+        logits = self._logits(params, x, gather, ctx)
         if cfg.family == "vlm":
             logits = logits[:, cfg.num_patches:]
-        ce = softmax_xent(logits, labels, cfg.vocab_size)
+        ce = softmax_xent(logits, labels, cfg.vocab_size, ctx)
         return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
@@ -202,14 +209,15 @@ class LM:
         (``self.params`` by default) and ``ctx`` as the reference's
         ``LM.prefill(params, batch, ctx)`` takes them: with a
         ``DistContext`` whose batch group has several ranks (this rank's
-        rows of a split batch), the moe layers route the group's tokens.
-        ``gather`` as :meth:`loss`."""
+        rows of a split batch), the moe layers route the group's tokens;
+        under tp with a ``model`` axis above one rank the logits are this
+        rank's vocab block.  ``gather`` as :meth:`loss`."""
         params = self.params if params is None else params
         cache = self._prompt_cache(tokens, cache_len, vision_embeds,
                                    encoder_frames, params["embed"].dtype)
         x, _ = self._hidden(params, tokens, cache, vision_embeds,
                             encoder_frames, ctx, gather=gather)
-        return self._logits(params, x[:, -1], gather), cache
+        return self._logits(params, x[:, -1], gather, ctx), cache
 
     @torch.no_grad()
     def decode_step(self, cache, token, *, params=None, ctx=None,
@@ -228,12 +236,15 @@ class LM:
         filled = cache["filled"]
         stack = cache.get("stack", {})
         kv = stack.get("k", stack.get("self_k"))
-        if kv is not None and filled >= kv.shape[3]:
+        # a cache split over its slots holds this rank's block of them
+        ways = 1 if ctx is None else ctx.axes.get(ctx.rules.get("cache_seq"),
+                                                  1)
+        if kv is not None and filled >= kv.shape[3] * ways:
             raise IndexError(f"decode step writes slot {filled}, outside a "
-                             f"cache of {kv.shape[3]} slots")
+                             f"cache of {kv.shape[3] * ways} slots")
         token = torch.as_tensor(token, device=self.device).long()
         pos = cache["pos"]
-        x = gather.run(embed_lookup, params["embed"], token)
+        x = gather.run(embed_lookup, params["embed"], token, ctx)
         if self.cfg.family == "encdec":
             at = pos.clamp(0, self.max_seq - 1).long()
             x = gather.run(lambda t: x + t[at][:, None, :].to(x.dtype),
@@ -246,7 +257,7 @@ class LM:
         x = self._final_norm(params, x, gather)
         cache["pos"] = pos + 1
         cache["filled"] = filled + 1
-        return self._logits(params, x, gather)[:, 0], cache
+        return self._logits(params, x, gather, ctx)[:, 0], cache
 
     def init_cache(self, B: int, cache_len: int, dtype=None) -> dict:
         """Zeros cache; ``dtype`` defaults to the parameters' (a prefill

@@ -20,16 +20,35 @@ arrays).  The hybrid family's attention caches are rings of
 ``min(local_window, cache_len)`` slots.  Each unit runs through a gather
 hook (:class:`WholeParams` by default; a sharded step's per-unit gather,
 ``distributed/fsdp.py``).
+
+Under a tp context with a ``model`` axis above one rank (the dense and
+vlm families) each rank holds its block of the heads (where ``make_rules``
+splits them), of the kv heads (where it splits those) and of the mlp
+width, read in place, and the residual stream stays whole on every rank:
+an attention block's and a SwiGLU's input enters through ``to_model``,
+their row-split products' outputs leave through ``from_model``
+(``distributed/tensor_parallel.py``), at Megatron's four places.  Where
+the heads are split and the kv heads are not, each rank reads the kv
+heads its q heads map to; where the heads are not split, attention runs
+whole on every rank.  The cache holds every kv head (the reference's
+``cache_axes`` puts None on that dimension): prefill gathers k/v over
+``model`` before it writes them, and so does decode before its write;
+decode then attends with its own q heads, or under ``sp_decode`` gathers
+q's heads too, runs ``sp_decode_attention`` over its block of the slots
+and keeps its own heads of the output.
 """
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.decode_attn import sp_decode_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, moe, ssm
@@ -124,16 +143,64 @@ class WholeParams:
 WHOLE = WholeParams()
 
 
-def _o_proj(o, wo):
-    return torch.einsum("bshk,hkd->bsd", o, wo)
+def _o_proj(o, wo, group=None):
+    """The output projection; with a ``model`` group, this rank's heads'
+    part summed over the group (``from_model``)."""
+    return tp.from_model(torch.einsum("bshk,hkd->bsd", o, wo), group)
 
 
 def _ffn(p, x, cfg, ctx=None):
     """An attention layer's FFN: the routed experts (moe), with their aux
-    loss, or SwiGLU (aux None)."""
+    loss, or SwiGLU (aux None), tensor-parallel under a tp context."""
     if cfg.family == "moe":
         return moe.moe_ffn(p, x, cfg, ctx)
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), None
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"], ctx), None
+
+
+@dataclass(frozen=True)
+class HeadSplit:
+    """A tp rank's block of an attention layer's heads: the ``model``
+    group, this rank's q heads [first, first + heads), and whether the kv
+    heads are split too (else every rank holds them all)."""
+    group: object
+    first: int
+    heads: int
+    kv_split: bool
+
+
+def head_split(cfg, ctx) -> HeadSplit | None:
+    """How ``ctx`` splits the attention heads over ``model``: ``None``
+    without a tp ``model`` group, or where ``make_rules`` leaves the heads
+    whole (``num_heads`` not a multiple of the axis)."""
+    group = tp.model_group(ctx)
+    if group is None or ctx.rules.get("heads") is None:
+        return None
+    heads = cfg.num_heads // dist.get_world_size(group)
+    return HeadSplit(group, dist.get_rank(group) * heads, heads,
+                     ctx.rules.get("kv_heads") is not None)
+
+
+def _own_kv(hs: HeadSplit | None, cfg, k, v, dim: int):
+    """The kv heads (on ``dim``) this rank's q heads read, of k/v holding
+    every kv head."""
+    if hs is None:
+        return k, v
+    return attn.kv_for_heads(k, v, dim, hs.first, hs.heads,
+                             cfg.num_heads // cfg.num_kv_heads)
+
+
+def _partly_used(pa, hs: HeadSplit | None):
+    """An attention layer's leaves with those every ``model`` rank holds
+    whole but uses for its own heads only passed through ``to_model``, so
+    their gradients are summed over the group: ``wk`` and ``wv`` where
+    the kv heads are not split, ``q_norm`` and ``k_norm`` whenever the
+    heads are.  The norms of the residual stream, and attention whose
+    heads are not split, are used whole on every rank: not summed."""
+    if hs is None:
+        return pa
+    names = ("q_norm", "k_norm") + (() if hs.kv_split else ("wk", "wv"))
+    return {n: tp.to_model(w, hs.group) if n in names else w
+            for n, w in pa.items()}
 
 
 # ======================================================================
@@ -154,19 +221,31 @@ def attn_block_fwd(lp, x, cfg, positions, entry, ctx=None):
     With a local window, the reference's dispatch: banded attention only
     when S > window and S % window == 0, full causal attention otherwise
     (also for S > window not a multiple of it); the cache is a ring
-    holding the last ``window`` keys, token p in slot p % window."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions)
+    holding the last ``window`` keys, token p in slot p % window.  Under
+    a tp context, this rank's heads (module docstring)."""
+    hs = head_split(cfg, ctx)
+    group = None if hs is None else hs.group
+    h = tp.to_model(rms_norm(x, lp["ln1"], cfg.norm_eps), group)
+    q, k, v = attn.qkv_project(_partly_used(lp["attn"], hs), h, cfg,
+                               positions)
     S, window = x.shape[1], _window(cfg)
-    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    ka, va = k, v                 # a split kv head block is this rank's
+    if hs is not None and not hs.kv_split:
+        ka, va = _own_kv(hs, cfg, k, v, 2)
+    kh, vh = ka.transpose(1, 2).contiguous(), va.transpose(1, 2).contiguous()
     if window and S > window and S % window == 0:
-        o = attn.banded_local_attention(q, k, v, window=window)
+        o = attn.banded_local_attention(q, ka, va, window=window)
     else:
         o = attn.prefill_attention(q, kh, vh)
-    x = x + _o_proj(o, lp["attn"]["wo"])
+    x = x + _o_proj(o, lp["attn"]["wo"], group)
     y, aux = _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, ctx)
     x = x + y
     if entry is not None:
+        if hs is not None and hs.kv_split:       # every kv head in the cache
+            kh, vh = tp.gather_model(kh, 1, group), tp.gather_model(vh, 1,
+                                                                    group)
+        elif hs is not None:
+            kh, vh = k.transpose(1, 2), v.transpose(1, 2)
         if window and S >= window:
             shift = (S - window) % window
             entry["k"].copy_(torch.roll(kh[:, :, -window:], shift, dims=2))
@@ -213,20 +292,29 @@ def attn_block_dec(lp, x, cfg, pos, entry, ctx=None):
     """One attention block, one token; the reference's branch order: a
     local window's ring, else ``sp_decode_attention`` when ``ctx`` asks
     for sequence-parallel decode, else the plain cache write and
-    attention.  ``ctx`` also reaches the moe FFN."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    attention.  ``ctx`` also reaches the moe FFN; under a tp context, this
+    rank's heads (module docstring)."""
+    hs = head_split(cfg, ctx)
+    group = None if hs is None else hs.group
+    h = tp.to_model(rms_norm(x, lp["ln1"], cfg.norm_eps), group)
     q, k, v = attn.qkv_project(lp["attn"], h, cfg, pos[:, None])
+    if hs is not None and hs.kv_split:           # every kv head in the cache
+        k, v = tp.gather_model(k, 2, group), tp.gather_model(v, 2, group)
     window = _window(cfg)
     if window:
         kc, vc = attn.cache_write_window(entry["k"], entry["v"], k, v, pos)
-        o = attn.decode_attention_window(q, kc, vc, pos, window=window)
+        o = attn.decode_attention_window(q, *_own_kv(hs, cfg, kc, vc, 1), pos,
+                                         window=window)
     elif ctx is not None and ctx.sp_decode:
-        o, _, _ = sp_decode_attention(ctx, q, entry["k"], entry["v"], k, v,
+        qa = q if hs is None else tp.gather_model(q, 2, group)
+        o, _, _ = sp_decode_attention(ctx, qa, entry["k"], entry["v"], k, v,
                                       pos)
+        if hs is not None:
+            o = o.narrow(2, hs.first, hs.heads)
     else:
         kc, vc = attn.cache_write_plain(entry["k"], entry["v"], k, v, pos)
-        o = attn.decode_attention_plain(q, kc, vc, pos)
-    x = x + _o_proj(o, lp["attn"]["wo"])
+        o = attn.decode_attention_plain(q, *_own_kv(hs, cfg, kc, vc, 1), pos)
+    x = x + _o_proj(o, lp["attn"]["wo"], group)
     return x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
                     ctx)[0]
 

@@ -1,7 +1,9 @@
 """The reference's sharded runs, in a process of its own with 8 host
 devices, for the port's gloo tests (``tests/test_torch_moe_shardmap.py``,
-``tests/test_torch_distributed.py``; ``tests/test_torch_fsdp.py`` runs its
-single-device reference here, on a 1 x 1 mesh, beside its spawns).
+``tests/test_torch_distributed.py``, ``tests/test_torch_tp.py``: the tp
+train and serve steps at (1, 2), (2, 2) and (1, 4); ``tests/
+test_torch_fsdp.py`` runs its single-device reference here, on a 1 x 1
+mesh, beside its spawns).
 
 The test process keeps its one CPU device (``tests/conftest.py``), so the
 parent starts this script with ``XLA_FLAGS=--xla_force_host_platform_

@@ -367,27 +367,64 @@ def test_each_rank_holds_its_share_of_the_optimizer_state(run):
 # in the test process: no ranks
 # ----------------------------------------------------------------------
 
-def test_tp_mode_with_a_model_axis_raises_not_implemented():
-    cfg = get_config("yi-6b", reduced=True)
+# one config of each family whose layers have no tensor-parallel compute
+NOT_TP = ("mamba2-370m", "recurrentgemma-9b", "qwen2-moe-a2.7b",
+          "whisper-tiny")
+
+
+@pytest.mark.parametrize("arch", NOT_TP)
+def test_tp_mode_with_a_model_axis_raises_not_implemented(arch):
+    """The ssm, hybrid, moe and encdec families have no tensor-parallel
+    compute over ``model`` yet: ``build_train_step`` in tp with a
+    ``model`` axis above one rank raises, naming ROADMAP A10b-4b (the
+    dense and vlm families run there: ``tests/test_torch_tp.py``)."""
+    cfg = get_config(arch, reduced=True)
     lm = LM(cfg, max_seq=32, device="cpu")
     shape = ShapeConfig("t", "train", 32, 8)
     for axes in ({"data": 2, "model": 2}, {"data": 1, "model": 4},
                  {"pod": 2, "data": 2, "model": 2}):
         ctx = DistContext.create(cfg, axes, mode="tp")
-        with pytest.raises(NotImplementedError, match="A10b"):
+        with pytest.raises(NotImplementedError, match="A10b-4b"):
             build_train_step(lm, TrainConfig(), ctx, shape)
 
 
 def test_vocab_parallel_raises_not_implemented():
-    """The reference's vocab-parallel embedding and loss have no port yet:
-    asking for them raises, from ``create`` and from the constructor."""
-    cfg = get_config("yi-6b", reduced=True)
-    axes = {"data": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="A10b"):
-        DistContext.create(cfg, axes, vocab_parallel=True)
-    ctx = DistContext.create(cfg, axes)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        DistContext(ctx.mesh, ctx.rules, vocab_parallel=True)
+    """(Named from when the port refused the flag.)  The reference's
+    ``DistContext`` takes ``vocab_parallel`` and never reads it; the
+    port's takes it too, from ``create`` and from the constructor, keeps
+    it, and nothing changes: the loss and every gradient are the same
+    bits with it and without it, and the reference's loss with it is the
+    reference's loss without it."""
+    cfg, rcfg = get_config("yi-6b", reduced=True), ref_config(
+        "yi-6b", reduced=True)
+    axes = {"data": 1, "model": 1}
+    lm = LM(cfg, max_seq=16, device="cpu")
+    lm.init(0, torch.float32)
+    batch = TokenPipeline(cfg, ShapeConfig("t", "train", 16, 2),
+                          seed=1).train_batch(0)
+    base = DistContext.create(cfg, axes)
+    leaves = dict(tree_flatten_with_path(lm.params))
+    got = []
+    for ctx in (base, DistContext.create(cfg, axes, vocab_parallel=True),
+                DistContext(base.mesh, base.rules, vocab_parallel=True)):
+        assert ctx.vocab_parallel == (ctx is not base)
+        for t in leaves.values():
+            t.grad = None
+            t.requires_grad_(True)
+        loss, _ = lm.loss(lm.params, batch, ctx)
+        loss.backward()
+        got.append((loss.detach(), {k: t.grad.clone()
+                                    for k, t in leaves.items()}))
+    for loss, grads in got[1:]:
+        assert torch.equal(loss, got[0][0])
+        assert all(torch.equal(g, got[0][1][k]) for k, g in grads.items())
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    rlm = RefLM(rcfg, max_seq=16)
+    params = rlm.init(jax.random.PRNGKey(0), jnp.float32)
+    with mesh:
+        ref = [float(rlm.loss(params, batch, RefContext.create(
+            rcfg, mesh, vocab_parallel=vp))[0]) for vp in (False, True)]
+    assert ref[0] == ref[1]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
