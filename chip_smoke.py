@@ -223,17 +223,27 @@ Phases, each printing one JSON line:
             two processes of this script on the one card, gloo over CUDA
             tensors on a (1, 2) mesh (``make_dev_mesh(..., backend=
             "gloo")``; NCCL refuses two ranks on one device): a probe of
-            which gloo collectives take CUDA tensors; full yi-6b serving
-            (batch 4, prompt 2048, 32 steps) in tp with sp_decode off and
-            on against ``LM`` in this process (logits within 5e-2, ids
-            equal but at near ties, flash 32 launches a rank's prefill at
-            16 of 32 heads); full-width minicpm-2b training at the most
-            of 40, 20 and 10 layers at which both ranks fit, against
-            ``build_train_step`` at world size 1 (loss within 1e-3, grad
-            norm within 5e-2; flash forward and backward at 18 of 36
-            heads); seconds, each rank's peak memory beside
-            ``model_memory`` for tp on (1, 2), and the collectives' bytes
-            and share of the step (host-staged gloo, not NCCL's times).
+            which gloo collectives take CUDA tensors; serving against
+            ``LM`` in this process (logits within 5e-2, mamba2-370m's
+            within 0.25 beside LM's own distance from an f32 arm; ids
+            equal but at near ties): full yi-6b (batch 4, prompt 2048, 32
+            steps) with sp_decode off and on (flash 32 launches a rank's
+            prefill at 16 of 32 heads), full mamba2-370m (batch 8, prompt
+            2000; the SSD scan 48 at 16 of 32 heads) and full
+            recurrentgemma-9b (batch 4, prompt 2048; the RG-LRU scan 26
+            at 2048 of 4096, flash 12 at 8 of 16 q heads) with sp_decode
+            on, 8 steps each; full-width training
+            against ``build_train_step`` at world size 1 (loss within
+            1e-3, grad norm within 1e-2, each leaf's gradient norm within
+            2e-2): minicpm-2b (the most of 40, 20 and 10 layers at which
+            both ranks fit), mamba2-370m (48, 24, 12) and
+            recurrentgemma-9b (6, 3), each kernel and its backward once a
+            layer of its kind at the rank's shape; seconds, each rank's
+            peak memory beside ``model_memory`` for tp on (1, 2), and the
+            collectives' bytes and share of the step (host-staged gloo,
+            not NCCL's times).  The kernel checks hold the SSD scan, the
+            RG-LRU scan and hd-256 flash, forward and backward, at these
+            rank shapes too.
 
 Every peak of device memory (the serve cells, the train legs, dist_train,
 dist_serve) is printed beside ``launch.memmodel.model_memory``'s terms and
@@ -821,6 +831,9 @@ def phase_lm_kernels() -> list[dict]:
              rg.resolved_head_dim)
     rg_red_fa = (REDUCED_BATCH, rgr.num_heads, rgr.num_kv_heads,
                  REDUCED_PROMPT, rgr.resolved_head_dim)
+    # a dist_tp rank's: 8 of the 16 q heads over the one kv head
+    rg_tp_fa = (RG_BATCH, rg.num_heads // TP_WORLD, rg.num_kv_heads,
+                RG_PROMPT, rg.resolved_head_dim)
     # stablelm-12b's prefill: GQA 32:8, hd 160
     sl = get_config("stablelm-12b")
     sl_fa = (SL_BATCH, sl.num_heads, sl.num_kv_heads, SL_PROMPT,
@@ -865,7 +878,8 @@ def phase_lm_kernels() -> list[dict]:
                 # the whisper encoder (full attention, S 1500), its decoder
                 # and qwen3-moe's GQA 64:4 at their serve shapes
                 (wh_enc, bf16, False), (wh_enc, f32, False),
-                (wh_dec, bf16, True), (q3_fa, bf16, True)]
+                (wh_dec, bf16, True), (q3_fa, bf16, True),
+                (rg_tp_fa, bf16, True), (rg_tp_fa, f32, True)]
     checked = []
     for (B, H, KV, S, hd), dtype, causal in fa_cases:
         q = randn((B, H, S, hd), dtype)
@@ -943,6 +957,8 @@ def phase_lm_kernels() -> list[dict]:
              "max_abs_err_bf16": errs["flash_attention", "bfloat16"],
              **time_flash(*main_fa),
              "hd256": time_flash(*rg_fa),   # recurrentgemma-9b's prefill
+             # a dist_tp rank's prefill of it: 8 of 16 q heads
+             "hd256_tp2": time_flash(*rg_tp_fa),
              "hd160": time_flash(*sl_fa),   # stablelm-12b's prefill
              # whisper-tiny's encoder (full) and decoder prompt, hd 64;
              # qwen3-moe's GQA 64:4
@@ -968,8 +984,10 @@ def phase_lm_kernels() -> list[dict]:
 
     main_ssd = ssd_shape(mb, MAMBA_BATCH, MAMBA_PROMPT)
     red_ssd = ssd_shape(mr, REDUCED_BATCH, REDUCED_PROMPT)
+    # a dist_tp rank's prefill: 16 of the 32 heads
+    tp_ssd = main_ssd[:2] + (mb.ssm_heads // TP_WORLD,) + main_ssd[3:]
     ssd_cases = [(main_ssd, bf16), (main_ssd, f32), (red_ssd, f32),
-                 (red_ssd, bf16)]
+                 (red_ssd, bf16), (tp_ssd, bf16), (tp_ssd, f32)]
     for shape in ((2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
                   (1, 64, 8, 32, 16, 64), (1, 300, 2, 32, 64, 100)):
         ssd_cases += [(shape, f32), (shape, bf16)]
@@ -994,6 +1012,32 @@ def phase_lm_kernels() -> list[dict]:
     except RuntimeError as e:
         if "does not take these sizes" not in str(e):
             raise
+
+    def ssd_work(B, S, H, P, N, Q):
+        """(bytes, flops) of the function: C B^T once per (b, chunk) (the
+        heads share one B/C group), then per (b, h, chunk) the decay mask,
+        (G o L) xdt, the chunk state, the inter-chunk term and the state
+        update."""
+        nc, tri = S // Q, Q * (Q + 1) // 2
+        flops = B * nc * tri * 2 * N + B * H * nc * (
+            tri * (1 + 2 * P) + 4 * Q * N * P + Q * P + Q * N + P * N)
+        nbytes = (2 * 2 * B * S * H * P + 2 * 2 * B * S * N + 4 * B * H * S
+                  + 4 * B * H * P * N)
+        return nbytes, flops
+
+    def time_ssd(B, S, H, P, N, Q):
+        """The bf16 kernel, its device time and the plain version at one
+        shape, beside its bound."""
+        ins = ssd_inputs(B, S, H, P, N, Q, bf16)
+        b, by = bound(*ssd_work(B, S, H, P, N, Q), BF16_OPS_PER_S)
+        return {"ms": time_ms(lambda: sk.ssd_scan_kernel(*ins), REPS),
+                "device_kernels_ms": device_kernels_ms(
+                    lambda: sk.ssd_scan_kernel(*ins)),
+                "plain_ms": time_ms(lambda: ssd_scan_ref(*ins),
+                                    max(2, REPS // 10)),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "timed_shape": [B, S, H, P, N, Q, "bfloat16"]}
+
     B, S, H, P, N, Q = main_ssd
     ins = ssd_inputs(B, S, H, P, N, Q, bf16)
     ms = time_ms(lambda: sk.ssd_scan_kernel(*ins), REPS)
@@ -1002,15 +1046,9 @@ def phase_lm_kernels() -> list[dict]:
     del ins32
     per_kernel = device_kernels_ms(lambda: sk.ssd_scan_kernel(*ins))
     plain_ms = time_ms(lambda: ssd_scan_ref(*ins), max(2, REPS // 10))
-    # the function's work: C B^T once per (b, chunk) (the heads share one
-    # B/C group), then per (b, h, chunk) the decay mask, (G o L) xdt, the
-    # chunk state, the inter-chunk term and the state update
-    nc, tri = S // Q, Q * (Q + 1) // 2
-    flops = B * nc * tri * 2 * N + B * H * nc * (
-        tri * (1 + 2 * P) + 4 * Q * N * P + Q * P + Q * N + P * N)
-    nbytes = (2 * 2 * B * S * H * P + 2 * 2 * B * S * N + 4 * B * H * S
-              + 4 * B * H * P * N)
+    nbytes, flops = ssd_work(B, S, H, P, N, Q)
     b, by = bound(nbytes, flops, BF16_OPS_PER_S)
+    del ins
     rows.append({"name": "ssd_scan", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan/kernel.py:71",
@@ -1023,7 +1061,8 @@ def phase_lm_kernels() -> list[dict]:
                  "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                  "library_ms": None,
                  "timed_shape": [B, S, H, P, N, Q, "bfloat16"],
-                 "flops": flops, "checked_shapes": checked})
+                 "flops": flops, "checked_shapes": checked,
+                 "tp2": time_ssd(*tp_ssd)})     # a dist_tp rank's
 
     # -- RG-LRU scan -----------------------------------------------------
     W_rg = rg.lru_width
@@ -1034,7 +1073,8 @@ def phase_lm_kernels() -> list[dict]:
         return a.to(dtype), (randn((B, S, W), f32) * 0.1).to(dtype)
 
     main_rg = (RG_BATCH, RG_PROMPT, W_rg)
-    rg_cases = [(main_rg, f32), (main_rg, bf16),
+    tp_rg = (RG_BATCH, RG_PROMPT, W_rg // TP_WORLD)    # a dist_tp rank's
+    rg_cases = [(main_rg, f32), (main_rg, bf16), (tp_rg, f32), (tp_rg, bf16),
                 ((REDUCED_BATCH, REDUCED_PROMPT, rgr.lru_width), f32),
                 ((REDUCED_BATCH, 64, rgr.lru_width), f32),
                 ((2, 77, 100), f32), ((2, 77, 100), bf16),
@@ -1054,11 +1094,20 @@ def phase_lm_kernels() -> list[dict]:
         if not torch.equal(last, h[:, -1]):
             raise AssertionError("rglru_scan: the final state is not h[:, -1]")
         checked.append([B, S, W, str(dtype).removeprefix("torch."), err])
+    def time_rg(B, S, W):
+        a, b_ = rglru_inputs(B, S, W, f32)
+        b, by = bound(4 * (3 * B * S * W + B * W), 2 * B * S * W)
+        return {"ms": time_ms(lambda: rk.rglru_scan_kernel(a, b_), REPS),
+                "plain_ms": time_ms(lambda: rglru_scan_ref(a, b_), 2),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "timed_shape": [B, S, W, "float32"]}
+
     B, S, W = main_rg
     a, b_ = rglru_inputs(B, S, W, f32)
     ms = time_ms(lambda: rk.rglru_scan_kernel(a, b_), REPS)
     plain_ms = time_ms(lambda: rglru_scan_ref(a, b_), 2)
     b, by = bound(4 * (3 * B * S * W + B * W), 2 * B * S * W)
+    del a, b_
     rows.append({"name": "rglru_scan", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
                  "replaces": "src/repro/kernels/rg_lru/kernel.py:40",
@@ -1070,7 +1119,8 @@ def phase_lm_kernels() -> list[dict]:
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
                  "bound_by": by, "library_ms": None,
                  "timed_shape": [B, S, W, "float32"],
-                 "checked_shapes": checked})
+                 "checked_shapes": checked,
+                 "tp2": time_rg(*tp_rg)})       # a dist_tp rank's
     torch.cuda.synchronize()
     emit({"phase": "lm_kernels", "checked": [r["name"] for r in rows],
           "tf32": False, "tolerances": {f"{k[0]}/{k[1]}": v
@@ -1161,6 +1211,11 @@ def phase_flash_bwd() -> list[dict]:
              ((1, 4, 2, 1025, 64), bf16, True), ((1, 4, 2, 1025, 64), f32, True),
              ((2, 4, 2, 77, 32), f32, False), ((1, 2, 2, 130, 16), bf16, True),
              ((2, 8, 2, 40, 64), f32, True), ((1, 4, 4, 24, 16), f32, False)]
+    # a dist_tp rank's recurrentgemma-9b training shape: 8 of 16 q heads
+    rgt = get_config("recurrentgemma-9b")
+    rg_tp_bwd = (RG_TRAIN_BATCH, rgt.num_heads // TP_WORLD, rgt.num_kv_heads,
+                 RG_TRAIN_SEQ, rgt.resolved_head_dim)
+    cases += [(rg_tp_bwd, bf16, True), (rg_tp_bwd, f32, True)]
     # the tensor-core route's tile edges (64-row key tiles; query tiles of 64
     # rows, 32 at hd 128, in the dK/dV walk; key tiles of 64, 32 at hd 128,
     # in the dQ walk): one, two and three tiles, each ragged by one either
@@ -1334,7 +1389,8 @@ def phase_flash_bwd() -> list[dict]:
         "hd256": sweep_row(RG_TRAIN_BATCH, rgc.num_heads, rgc.num_kv_heads,
                            RG_TRAIN_SEQ, rgc.resolved_head_dim, SWEEP_SLICES),
         "hd160": sweep_row(2, slc.num_heads, slc.num_kv_heads, TRAIN_SEQ,
-                           slc.resolved_head_dim, ())}
+                           slc.resolved_head_dim, ()),
+        "hd256_tp2": sweep_row(*rg_tp_bwd, ())}
     torch.cuda.synchronize()
     emit({"phase": "lm_kernels_bwd", "card": card_line(),
           "routes": dict(fk.BWD_ROUTE_LAUNCHES), "checked": checked,
@@ -1370,6 +1426,8 @@ def phase_flash_bwd() -> list[dict]:
              "forward_with_lse": forward, "flops": flops, "bytes": nbytes,
              "tensor_cores_hd256": sweeps["hd256"],
              "tensor_cores_hd160": sweeps["hd160"],
+             # a dist_tp rank's recurrentgemma-9b step: 8 of 16 q heads
+             "tensor_cores_hd256_tp2": sweeps["hd256_tp2"],
              "checked_shapes": checked}]
 
 
@@ -1457,6 +1515,7 @@ def phase_scan_bwd() -> list[dict]:
     # -- RG-LRU backward -------------------------------------------------
     rg = get_config("recurrentgemma-9b")
     main_rg = (RG_TRAIN_BATCH, RG_TRAIN_SEQ, rg.lru_width)
+    tp_rg = (RG_TRAIN_BATCH, RG_TRAIN_SEQ, rg.lru_width // TP_WORLD)
 
     def rg_inputs(B, S, W, with_dlast):
         a = torch.sigmoid(randn((B, S, W))) * 0.98
@@ -1467,7 +1526,9 @@ def phase_scan_bwd() -> list[dict]:
     for (B, S, W), with_dlast in [(main_rg, False), (main_rg, True),
                                   ((1, 1, 4096), True), ((2, 17, 100), False),
                                   ((1, 17, 130), True), ((3, 77, 33), False),
-                                  ((1, 2048, 128), True)]:
+                                  ((1, 2048, 128), True),
+                                  # a dist_tp rank's: 2048 of 4096
+                                  (tp_rg, False), (tp_rg, True)]:
         ins = rg_inputs(B, S, W, with_dlast)
         got = rk.rglru_scan_bwd_kernel(*ins)
         want = rglru_scan_bwd_ref(*ins)
@@ -1479,14 +1540,24 @@ def phase_scan_bwd() -> list[dict]:
                                  f"plain backward, or across two calls")
         rg_checked.append([B, S, W, with_dlast, max(
             float((x - y).abs().max()) for x, y in zip(got, want))])
-    a, h, dh, _ = rg_inputs(*main_rg, False)
-    B, S, W = main_rg
-    rg_ms = time_ms(lambda: rk.rglru_scan_bwd_kernel(a, h, dh), REPS)
-    rg_dev = device_kernels_ms(lambda: rk.rglru_scan_bwd_kernel(a, h, dh))
-    rg_plain = time_ms(lambda: rglru_scan_bwd_ref(a, h, dh), 2)
-    # a, h, dh read, da and db written; two products and a sum per element
-    rg_bound, rg_by = bound(5 * 4 * B * S * W, 3 * B * S * W)
-    del a, h, dh
+    def time_rg(B, S, W):
+        a, h, dh, _ = rg_inputs(B, S, W, False)
+        # a, h, dh read, da and db written; two products and a sum an
+        # element
+        b, by = bound(5 * 4 * B * S * W, 3 * B * S * W)
+        return {"ms": time_ms(lambda: rk.rglru_scan_bwd_kernel(a, h, dh),
+                              REPS),
+                "device_kernels_ms": device_kernels_ms(
+                    lambda: rk.rglru_scan_bwd_kernel(a, h, dh)),
+                "plain_ms": time_ms(lambda: rglru_scan_bwd_ref(a, h, dh), 2),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "timed_shape": [B, S, W, "float32"]}
+
+    rg_main = time_rg(*main_rg)
+    rg_ms, rg_dev, rg_plain = (rg_main[k] for k in ("ms", "device_kernels_ms",
+                                                    "plain_ms"))
+    rg_bound, rg_by = rg_main["bound_ms"], rg_main["bound_by"]
+    rg_tp = time_rg(*tp_rg)
 
     # -- SSD backward ----------------------------------------------------
     mb = get_config(MAMBA_TRAIN_ARCH)
@@ -1522,6 +1593,9 @@ def phase_scan_bwd() -> list[dict]:
               ((1, 384, 1, 64, 128, 192), bf16, False),
               ((2, 512, 17, 64, 128, 256), bf16, True),
               ((1, 100, 6, 32, 112, 100), bf16, True)]
+    # a dist_tp rank's mamba2-370m training shape: 16 of the 32 heads
+    tp_ssd = main_ssd[:2] + (mb.ssm_heads // TP_WORLD,) + main_ssd[3:]
+    cases += [(tp_ssd, bf16, False), (tp_ssd, f32, False)]
     errs = {"float32": 0.0, "bfloat16": 0.0}     # of each output's max-abs
     abs_errs = {"float32": 0.0, "bfloat16": 0.0}
     checked = []
@@ -1547,6 +1621,19 @@ def phase_scan_bwd() -> list[dict]:
         errs[name] = max(errs[name], err)
         checked.append([B, S, H, P, N, Q, name, with_dstate, err])
         del ins, got, want, again
+    def time_ssd_tp(B, S, H, P, N, Q):
+        ins = ssd_inputs(B, S, H, P, N, Q, bf16, False)
+        b, by = bound(*reversed(ssd_bwd_work(B, S, H, P, N, Q, 2, False)),
+                      BF16_OPS_PER_S)
+        return {"ms": time_ms(lambda: sk.ssd_scan_bwd_kernel(*ins), REPS),
+                "device_kernels_ms": device_kernels_ms(
+                    lambda: sk.ssd_scan_bwd_kernel(*ins)),
+                "plain_ms": time_ms(lambda: ssd_scan_bwd_ref(*ins),
+                                    max(2, REPS // 10)),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "timed_shape": [B, S, H, P, N, Q, "bfloat16"]}
+
+    ssd_tp = time_ssd_tp(*tp_ssd)
     B, S, H, P, N, Q = main_ssd
     ins = ssd_inputs(B, S, H, P, N, Q, bf16, False)
     ssd_ms = time_ms(lambda: sk.ssd_scan_bwd_kernel(*ins), REPS)
@@ -1582,6 +1669,7 @@ def phase_scan_bwd() -> list[dict]:
              "device_kernels_ms": rg_dev, "plain_ms": rg_plain,
              "bound_ms": rg_bound, "bound_by": rg_by, "library_ms": None,
              "timed_shape": [*main_rg, "float32"],
+             "tp2": rg_tp,          # a dist_tp rank's: 2048 of 4096
              "checked_shapes": rg_checked},
             {"name": "ssd_scan_bwd", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -1600,6 +1688,7 @@ def phase_scan_bwd() -> list[dict]:
              "plain_ms": ssd_plain, "bound_ms": ssd_bound,
              "bound_by": ssd_by, "library_ms": None, "flops": flops,
              "bytes": nbytes, "timed_shape": [*main_ssd, "bfloat16"],
+             "tp2": ssd_tp,         # a dist_tp rank's: 16 of 32 heads
              "checked_shapes": checked}]
 
 
@@ -4165,9 +4254,33 @@ def dist_serve_shardmap(mesh, serve, path_launches: dict) -> dict:
 TP_WORLD = 2
 TP_RANK_TIMEOUT = 600              # seconds a rank process may take
 TP_COLLECTIVE_TIMEOUT = 120        # seconds a gloo collective may wait
-TP_SERVE = ("yi-6b", YI_BATCH, YI_PROMPT)
-# minicpm-2b's depths tried, most first: the first at which both ranks fit
-TP_TRAIN_LAYERS = (40, 20, 10)
+# the serve legs: (arch, batch, prompt, decode steps, the sp_decode
+# settings run); the ssm and hybrid legs with sp_decode on only
+# (mamba2-370m has no attention, and the hybrid's window ring comes before
+# sp_decode in the branch order; the CPU tests run both settings), and
+# cut to TP_REC_GEN steps: a tp decode step of either took 0.28-0.49 s
+# on two ranks over gloo on an H100's host (the host sets it), GEN of
+# them 9-16 s a leg of the smoke's time limit
+TP_REC_GEN = 8
+TP_SERVE_LEGS = (("yi-6b", YI_BATCH, YI_PROMPT, GEN, (False, True)),
+                 ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT, TP_REC_GEN,
+                  (True,)),
+                 ("recurrentgemma-9b", RG_BATCH, RG_PROMPT, TP_REC_GEN,
+                  (True,)))
+# a family's serving limit where its bf16 floor passes DIST_SERVE_TOL:
+# mamba2-370m's LM in bf16 lay 0.141 from an f32 arm of the same
+# weights, relative to 1 + |logit| (the floor, which the phase measures
+# and prints), and its tp logits 0.150 from LM's (H100, PERF.md §6)
+TP_SERVE_TOL = {"mamba2-370m": 0.25}
+# the train legs, full width: (arch, depths tried, most first: the first at
+# which world size 1 and both ranks fit, batch, seq); minicpm-2b the
+# train phase's cell, mamba2-370m and recurrentgemma-9b the train phase's
+# scan cells
+TP_TRAIN_LEGS = ((TRAIN_ARCH, (40, 20, 10), TRAIN_BATCH, TRAIN_SEQ),
+                 (MAMBA_TRAIN_ARCH, (48, 24, 12), MAMBA_TRAIN_BATCH,
+                  MAMBA_TRAIN_SEQ),
+                 ("recurrentgemma-9b", (RG_TRAIN_LAYERS, 3), RG_TRAIN_BATCH,
+                  RG_TRAIN_SEQ))
 # the tp step's grad norm, and each leaf's gradient norm, against world
 # size 1's, both bf16 (the row-split products' partial sums round to bf16
 # before the all-reduce adds them), about 4 times the largest gaps read on
@@ -4341,13 +4454,14 @@ def tp_mesh_memory(cfg, kind: str, seq: int, batch: int, *, tc=None,
                         tc or TrainConfig(), lm, hbm_bytes=card_memory())
 
 
-def tp_rank_serve(rank: int, tmp: Path) -> dict:
-    """The serve leg on this rank: full TP_SERVE_ARCH in tp on the (1, 2)
-    gloo mesh, its weights made from SEED as the parent's ``LM`` made
-    them, then, with ``sp_decode`` off and on, a prefill and GEN decode
-    steps driven by ``LM``'s greedy ids.  Rank 0 saves each step's full
-    logits; every rank returns its times, launches, peak memory,
-    collectives and ``gather_stats``."""
+def tp_rank_serve(rank: int, tmp: Path, arch: str, batch: int, prompt: int,
+                  gen: int, sps: tuple) -> dict:
+    """A serve leg on this rank: full ``arch`` in tp on the (1, 2) gloo
+    mesh, its weights made from SEED as the parent's ``LM`` made them,
+    then, with each ``sp_decode`` setting of ``sps``, a prefill and
+    ``gen`` decode steps driven by ``LM``'s greedy ids.  Rank 0 saves each step's
+    full logits; every rank returns its times, launches, peak memory,
+    collectives and ``gather_stats``; the weights are freed."""
     import gc
 
     import torch
@@ -4360,10 +4474,11 @@ def tp_rank_serve(rank: int, tmp: Path) -> dict:
     from repro_torch.launch.mesh import make_dev_mesh
     from repro_torch.models import LM
 
-    arch, batch, prompt = TP_SERVE
     cfg = serve_config(arch)
-    total = prompt + GEN
-    inputs = torch.load(tmp / "serve-inputs.pt")
+    total = prompt + gen
+    inputs = torch.load(tmp / f"serve-inputs-{arch}.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
     tokens, drive = inputs["tokens"].cuda(), inputs["ids"].cuda()
     mesh = make_dev_mesh(1, TP_WORLD, device="cuda", backend="gloo")
     lm = LM(cfg, max_seq=total, device="cuda")
@@ -4373,7 +4488,7 @@ def tp_rank_serve(rank: int, tmp: Path) -> dict:
     dshape = ShapeConfig("smoke", "decode", total, batch)
     params, legs = None, {}
     with CollectiveMeter() as meter:
-        for sp in (False, True):
+        for sp in sps:
             ctx = DistContext.create(cfg, mesh, mode="tp", sp_decode=sp)
             pf, (p_sh, _, _, _) = build_prefill_step(lm, ctx, pshape,
                                                      cache_len=total)
@@ -4396,7 +4511,7 @@ def tp_rank_serve(rank: int, tmp: Path) -> dict:
             mid = lm_launches()
             out = [full_logits(logits, ctx)]
             t_decode, coll_decode = 0.0, {}
-            for s in range(GEN):
+            for s in range(gen):
                 meter.take()        # the comparison's gather, not the step's
                 t0 = time.perf_counter()
                 logits, cache = df(params, cache, {"token": drive[:, s:s + 1]})
@@ -4411,11 +4526,11 @@ def tp_rank_serve(rank: int, tmp: Path) -> dict:
             after = lm_launches()
             peak = torch.cuda.max_memory_allocated()
             if rank == 0:
-                torch.save(out, tmp / f"serve-logits-{int(sp)}.pt")
+                torch.save(out, tmp / f"serve-logits-{arch}-{int(sp)}.pt")
             legs["sp" if sp else "nosp"] = {
                 "sp_decode": sp, "prefill_seconds": t_prefill,
                 "decode_seconds": t_decode,
-                "decode_tokens_per_s": GEN * batch / t_decode,
+                "decode_tokens_per_s": gen * batch / t_decode,
                 "peak_memory_bytes": peak, "held_before": held,
                 "model_memory": {
                     "prefill": beside_peak(tp_mesh_memory(
@@ -4429,9 +4544,12 @@ def tp_rank_serve(rank: int, tmp: Path) -> dict:
                 "gather_stats": {"prefill": dict(pf.gather_stats),
                                  "decode": dict(df.gather_stats)}}
             del cache, logits, pf, df
-    return {"legs": legs, "local_param_bytes": sum(
-        t.to_local().numel() * t.element_size()
-        for _, t in tree_flatten_with_path(params))}
+    held = sum(t.to_local().numel() * t.element_size()
+               for _, t in tree_flatten_with_path(params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"legs": legs, "local_param_bytes": held}
 
 
 def full_logits(logits, ctx):
@@ -4445,17 +4563,18 @@ def full_logits(logits, ctx):
                            tp.model_group(ctx)).float().cpu()
 
 
-def tp_train_setup(layers: int):
-    """(config at ``layers`` of TRAIN_ARCH's, shape, TrainConfig, batches):
-    dist_train's minicpm-2b cell, cut in depth only."""
+def tp_train_setup(arch: str, layers: int):
+    """(config at ``layers`` of ``arch``'s, shape, TrainConfig, batches):
+    the train leg's cell (TP_TRAIN_LEGS), cut in depth only."""
     import dataclasses
 
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import TokenPipeline
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers)
-    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    batch, seq = {a: (b, s) for a, _, b, s in TP_TRAIN_LEGS}[arch]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    shape = ShapeConfig("smoke", "train", seq, batch)
     tc = TrainConfig(learning_rate=float(TRAIN_LR), total_steps=DIST_STEPS,
                      warmup_steps=max(DIST_STEPS // 10, 1),
                      schedule=cfg.schedule, remat="none")
@@ -4463,7 +4582,8 @@ def tp_train_setup(layers: int):
     return cfg, shape, tc, [pipe.train_batch(s) for s in range(DIST_STEPS)]
 
 
-def tp_train_steps(mesh, layers: int, meter=None, reverse=False) -> dict:
+def tp_train_steps(mesh, arch: str, layers: int, meter=None,
+                   reverse=False) -> dict:
     """DIST_STEPS of ``build_train_step`` in tp on ``mesh`` from weights
     made from the TrainConfig's seed -> losses, grad norms, each leaf's
     squared gradient norm, each step's seconds, launches and (with
@@ -4480,11 +4600,11 @@ def tp_train_steps(mesh, layers: int, meter=None, reverse=False) -> dict:
     )
     from repro_torch.models import LM
 
-    cfg, shape, tc, batches = tp_train_setup(layers)
+    cfg, shape, tc, batches = tp_train_setup(arch, layers)
     if reverse:
         batches = [{k: v[::-1].copy() for k, v in b.items()}
                    for b in batches]
-    lm = LM(cfg, max_seq=TRAIN_SEQ, device="cuda")
+    lm = LM(cfg, max_seq=shape.seq_len, device="cuda")
     ctx = DistContext.create(cfg, mesh, mode="tp")
     step, (p_sh, o_sh, _) = build_train_step(lm, tc, ctx, shape)
     params = distribute_tree(lm.init(tc.seed, torch.bfloat16), ctx, p_sh)
@@ -4517,9 +4637,9 @@ def tp_train_steps(mesh, layers: int, meter=None, reverse=False) -> dict:
             "held_before_steps": held, "gather_stats": dict(step.gather_stats)}
 
 
-def tp_rank_train(layers: int) -> dict:
-    """The train leg on this rank at ``layers`` layers (the (1, 2) gloo
-    mesh); an out-of-memory is recorded and ends the process with code 3."""
+def tp_rank_train(arch: str, layers: int) -> dict:
+    """A train leg on this rank at ``layers`` layers (the (1, 2) gloo
+    mesh); an out-of-memory is recorded (its caller ends the process)."""
     import gc
 
     import torch
@@ -4531,14 +4651,48 @@ def tp_rank_train(layers: int) -> dict:
     mesh = make_dev_mesh(1, TP_WORLD, device="cuda", backend="gloo")
     try:
         with CollectiveMeter() as meter:
-            out = tp_train_steps(mesh, layers, meter)
+            out = tp_train_steps(mesh, arch, layers, meter)
     except torch.cuda.OutOfMemoryError as e:
         return {"oom": str(e).splitlines()[0]}
-    cfg, _, tc, _ = tp_train_setup(layers)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg, shape, tc, _ = tp_train_setup(arch, layers)
     out["model_memory"] = beside_peak(
-        tp_mesh_memory(cfg, "train", TRAIN_SEQ, TRAIN_BATCH, tc=tc),
-        out["peak_memory_bytes"])
+        tp_mesh_memory(cfg, "train", shape.seq_len, shape.global_batch,
+                       tc=tc), out["peak_memory_bytes"])
     return out
+
+
+def tp_world_size_1(tmp: Path, arch: str, layers: int) -> dict:
+    """``build_train_step`` at world size 1 (NCCL, in this process) at a
+    train leg's depth, then again with each batch's rows reversed ->
+    {"ref", "rev"}, or {"oom"} where it does not fit; freed after."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / f"tp-ref-store-{arch}-{layers}"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        ref = tp_train_steps(make_dev_mesh(1, 1, device="cuda"), arch, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rev = tp_train_steps(make_dev_mesh(1, 1, device="cuda"), arch, layers,
+                             reverse=True)
+    except torch.cuda.OutOfMemoryError as e:
+        return {"oom": str(e).splitlines()[0]}
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"ref": ref, "rev": rev}
 
 
 # the collectives the tp path issues, which the probe must find working
@@ -4547,12 +4701,13 @@ TP_NEEDS = ("all_reduce_sum", "all_reduce_max", "all_gather_into_tensor")
 
 def tp_rank_main(rank: int, world: int, tmp: Path, job: str) -> int:
     """One rank of ``dist_tp``: gloo over a ``FileStore`` in ``tmp``, the
-    card as cuda:0; runs ``job`` and writes ``tmp/<job>-<rank>.json``:
-    ``legs<L>`` the probe (raising unless every collective of TP_NEEDS
-    works), the serve leg and the train leg at L layers, ``train<L>`` the
-    train leg alone.  A rank whose train leg ran out of memory exits with
-    code 3 after writing its result (its partner may wait in a
-    collective: the parent ends it)."""
+    card as cuda:0; runs the job ``tmp/<job>.json`` describes and writes
+    ``tmp/<job>-<rank>.json`` after each leg: where it has ``serve`` legs
+    (TP_SERVE_LEGS' entries), the probe (raising unless every collective
+    of TP_NEEDS works) and each serve leg; then each train leg of
+    ``train`` ([arch, layers] pairs), in order.  A rank whose train leg ran out of memory
+    exits with code 3 after writing its result (its partner may wait in
+    a collective: the parent ends it)."""
     import datetime
     import faulthandler
     import os
@@ -4562,13 +4717,15 @@ def tp_rank_main(rank: int, world: int, tmp: Path, job: str) -> int:
 
     faulthandler.enable()            # a crash in native code names its line
     sys.path.insert(0, str(ROOT / "src"))
+    spec = json.loads((tmp / f"{job}.json").read_text())
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(
         str(tmp / f"{job}-store"), world), rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=TP_COLLECTIVE_TIMEOUT))
+    out = tmp / f"{job}-{rank}.json"
     try:
-        result = {}
-        if job.startswith("legs"):
+        result: dict = {"train": {}}
+        if spec["serve"]:
             result["probe"] = {"collectives": tp_probe(rank, world),
                                "device_mesh": tp_probe_mesh(world)}
             for dt, ops in result["probe"]["collectives"].items():
@@ -4576,27 +4733,30 @@ def tp_rank_main(rank: int, world: int, tmp: Path, job: str) -> int:
                     if ops[op] != "ok":
                         raise AssertionError(f"dist_tp probe: {op} {dt}: "
                                              f"{ops[op]}")
-            result["serve"] = tp_rank_serve(rank, tmp)
-            # kept if the train leg's out-of-memory ends the partner
-            (tmp / f"{job}-{rank}.json").write_text(json.dumps(result))
-        elif not job.startswith("train"):
-            raise ValueError(f"dist_tp job {job!r}")
-        result["train"] = tp_rank_train(
-            int(job.removeprefix("legs").removeprefix("train")))
-        (tmp / f"{job}-{rank}.json").write_text(json.dumps(result))
-        if "oom" in result["train"]:
-            sys.stdout.flush()
-            os._exit(3)
+            result["serve"] = {}
+            for arch, batch, prompt, gen, sps in spec["serve"]:
+                result["serve"][arch] = tp_rank_serve(rank, tmp, arch, batch,
+                                                      prompt, gen, tuple(sps))
+            # kept if a train leg's out-of-memory ends the partner
+            out.write_text(json.dumps(result))
+        for arch, layers in spec["train"]:
+            result["train"][arch] = tp_rank_train(arch, layers)
+            out.write_text(json.dumps(result))
+            if "oom" in result["train"][arch]:
+                sys.stdout.flush()
+                os._exit(3)
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def run_tp_ranks(tmp: Path, job: str) -> list:
-    """``job`` on TP_WORLD rank processes of this script -> each rank's
-    result (what it wrote before it was ended, or None, for a rank ended
-    because its partner ran out of memory); every rank bounded by
-    TP_RANK_TIMEOUT, and all ended once one has failed."""
+def run_tp_ranks(tmp: Path, job: str, spec: dict) -> list:
+    """The job ``spec`` (``tp_rank_main``) on TP_WORLD rank processes of
+    this script -> each rank's result (what it wrote before it was ended,
+    or None, for a rank ended because its partner ran out of memory);
+    every rank bounded by TP_RANK_TIMEOUT, and all ended once one has
+    failed."""
+    (tmp / f"{job}.json").write_text(json.dumps(spec))
     procs = []
     for r in range(TP_WORLD):
         log = open(tmp / f"{job}-{r}.log", "w")
@@ -4621,7 +4781,8 @@ def run_tp_ranks(tmp: Path, job: str) -> list:
            if (tmp / f"{job}-{r}.json").exists() else None
            for r in range(TP_WORLD)]
     if 3 in codes and all(c in (0, 3, -9) for c in codes) and \
-            any(o and "oom" in o.get("train", {}) for o in out):
+            any(o and any("oom" in t for t in o["train"].values())
+                for o in out):
         return out
     if any(c != 0 for c in codes):
         text = "\n".join(f"rank {r} (exit {c}):\n" +
@@ -4631,13 +4792,15 @@ def run_tp_ranks(tmp: Path, job: str) -> list:
     return out
 
 
-def logits_against(name: str, got: list, want: list, cfg) -> dict:
-    """Each step's logits within DIST_SERVE_TOL of ``want``'s (the
-    one-process ``LM``'s), and their argmax ``want``'s but at near ties
-    (as dist_serve's tp leg) -> the largest error and the flips."""
+def logits_against(name: str, got: list, want: list, cfg,
+                   tol: float = DIST_SERVE_TOL) -> dict:
+    """Each step's logits within ``tol`` of ``want``'s (the one-process
+    ``LM``'s), relative to 1 + |logit|, and their argmax ``want``'s but at
+    near ties (as dist_serve's tp leg) -> the largest error and the
+    flips."""
     import torch
 
-    errs, flips = [], []
+    errs, rels, flips = [], [], []
     for s, (a, b) in enumerate(zip(got, want)):
         a, b = a.float(), b.float()
         if a.shape != b.shape:
@@ -4645,13 +4808,14 @@ def logits_against(name: str, got: list, want: list, cfg) -> dict:
                                  f"{tuple(a.shape)}, LM's {tuple(b.shape)}")
         err = (a - b).abs()
         errs.append(float(err.max()))
-        if bool((err > DIST_SERVE_TOL * (1 + b.abs())).any()):
+        rels.append(float((err / (1 + b.abs())).max()))
+        if bool((err > tol * (1 + b.abs())).any()):
             raise AssertionError(f"dist_tp {name}: step {s} logits off by "
-                                 f"{errs[-1]} (tolerance {DIST_SERVE_TOL})")
+                                 f"{errs[-1]} (tolerance {tol})")
         mine, theirs = a.argmax(dim=-1), b.argmax(dim=-1)
         for r in torch.nonzero(mine != theirs).ravel().tolist():
             gap = float(b[r, theirs[r]] - b[r, mine[r]])
-            if gap > 2 * DIST_SERVE_TOL * (1 + float(b[r].abs().max())):
+            if gap > 2 * tol * (1 + float(b[r].abs().max())):
                 raise AssertionError(
                     f"dist_tp {name}: step {s} row {r} takes id "
                     f"{int(mine[r])}, LM's {int(theirs[r])}, {gap} apart")
@@ -4659,37 +4823,41 @@ def logits_against(name: str, got: list, want: list, cfg) -> dict:
     if len(got) != len(want):
         raise AssertionError(f"dist_tp {name}: {len(got)} steps of logits, "
                              f"LM's {len(want)}")
-    return {"max_abs_logit_err_vs_lm": max(errs), "near_tie_id_flips": flips}
+    return {"max_abs_logit_err_vs_lm": max(errs),
+            "max_rel_logit_err_vs_lm": max(rels), "near_tie_id_flips": flips}
 
 
-def tp_serve_report(tmp: Path, legs_by_rank: list, want: list, cfg,
+def tp_serve_report(tmp: Path, arch: str, prompt: int, gen: int,
+                    legs_by_rank: list, want: list, cfg,
                     add_launches) -> dict:
-    """Checks the ranks' serve legs (launches, no gathered bytes, logits
-    against ``want``, ``LM``'s) and adds their prefill launches -> the
-    serve line's legs."""
+    """Checks the ranks' serve legs of ``arch`` (launches, no gathered
+    bytes, logits against ``want``, ``LM``'s, within the family's
+    TP_SERVE_TOL or DIST_SERVE_TOL) and adds their prefill launches ->
+    the serve line's legs."""
     import torch
 
-    want_prefill = expected_launches(cfg, TP_SERVE[2])
+    want_prefill = expected_launches(cfg, prompt)
     none = {k: 0 for k in want_prefill}
     out = {}
-    for name in ("nosp", "sp"):
+    for name in legs_by_rank[0]["legs"]:
         legs = [rec["legs"][name] for rec in legs_by_rank]
         for r, leg in enumerate(legs):
             if leg["prefill_launches"] != want_prefill or \
                     leg["decode_launches"] != none:
                 raise AssertionError(
-                    f"dist_tp serve {name} rank {r}: prefill launches "
-                    f"{leg['prefill_launches']}, decode "
+                    f"dist_tp serve {arch} {name} rank {r}: prefill "
+                    f"launches {leg['prefill_launches']}, decode "
                     f"{leg['decode_launches']}; expected {want_prefill} "
                     f"and none")
             if leg["gather_stats"]["prefill"]["gathered_bytes_peak"] or \
                     leg["gather_stats"]["decode"]["gathered_bytes_peak"]:
-                raise AssertionError(f"dist_tp serve {name} rank {r} "
+                raise AssertionError(f"dist_tp serve {arch} {name} rank {r} "
                                      f"gathered parameters: "
                                      f"{leg['gather_stats']}")
             add_launches(leg["prefill_launches"])
-        got = torch.load(tmp / f"serve-logits-{int(name == 'sp')}.pt")
-        check = logits_against(f"serve {name}", got, want, cfg)
+        got = torch.load(tmp / f"serve-logits-{arch}-{int(name == 'sp')}.pt")
+        check = logits_against(f"serve {arch} {name}", got, want, cfg,
+                               TP_SERVE_TOL.get(arch, DIST_SERVE_TOL))
         pre_b, pre_s = collective_totals(legs[0]["collectives"]["prefill"])
         dec_b, dec_s = collective_totals(
             legs[0]["collectives"]["decode_all_steps"])
@@ -4697,7 +4865,7 @@ def tp_serve_report(tmp: Path, legs_by_rank: list, want: list, cfg,
             **check, "ranks": legs,
             "prefill_collective_bytes": pre_b,
             "prefill_collective_share": pre_s / legs[0]["prefill_seconds"],
-            "decode_collective_bytes_per_step": dec_b / GEN,
+            "decode_collective_bytes_per_step": dec_b / gen,
             "decode_collective_share": dec_s / legs[0]["decode_seconds"]}
     return out
 
@@ -4716,31 +4884,32 @@ def norm_gaps(h: dict, w: dict) -> dict:
             "leaf_norm": leaves[worst], "leaf": worst}
 
 
-def tp_train_report(layers: int, ranks: list, ref: dict, rev: dict,
-                    add_launches) -> dict:
-    """Checks the ranks' train legs at ``layers`` against world size 1's
-    ``ref`` (launches, no gathered bytes, loss within REMAT_TOL, grad norm
-    within TP_GRAD_NORM_RTOL, each leaf's gradient norm within
+def tp_train_report(arch: str, layers: int, ranks: list, ref: dict,
+                    rev: dict, add_launches) -> dict:
+    """Checks the ranks' train legs of ``arch`` at ``layers`` against world
+    size 1's ``ref`` (launches, no gathered bytes, loss within REMAT_TOL,
+    grad norm within TP_GRAD_NORM_RTOL, each leaf's gradient norm within
     TP_LEAF_NORM_RTOL), beside world size 1's with reversed rows ``rev``,
     and adds their launches -> the depth's record."""
-    cfg, _, _, _ = tp_train_setup(layers)
-    want_step = train_launches(cfg, TRAIN_SEQ)
+    cfg, shape, _, _ = tp_train_setup(arch, layers)
+    want_step = train_launches(cfg, shape.seq_len)
     for r, rec in enumerate(ranks):
         if rec["gather_stats"]["gathered_bytes_peak"]:
-            raise AssertionError(f"dist_tp train rank {r} gathered "
+            raise AssertionError(f"dist_tp train {arch} rank {r} gathered "
                                  f"parameters: {rec['gather_stats']}")
         for s, (h, w) in enumerate(zip(rec["steps"], ref["steps"])):
             if h["launches"] != want_step:
-                raise AssertionError(f"dist_tp train rank {r} step {s}: "
-                                     f"launches {h['launches']}, expected "
-                                     f"{want_step}")
+                raise AssertionError(f"dist_tp train {arch} rank {r} step "
+                                     f"{s}: launches {h['launches']}, "
+                                     f"expected {want_step}")
             add_launches(h["launches"])
             gap = norm_gaps(h, w)
             if gap["loss"] > REMAT_TOL or \
                     gap["grad_norm"] > TP_GRAD_NORM_RTOL or \
                     gap["leaf_norm"] > TP_LEAF_NORM_RTOL:
                 raise AssertionError(
-                    f"dist_tp train rank {r} step {s}: loss {h['loss']}, "
+                    f"dist_tp train {arch} rank {r} step {s}: loss "
+                    f"{h['loss']}, "
                     f"grad norm {h['grad_norm']}; world size 1: "
                     f"{w['loss']}, {w['grad_norm']}; gaps {gap}")
     steps = ranks[0]["steps"]
@@ -4766,6 +4935,77 @@ def tp_train_report(layers: int, ranks: list, ref: dict, rev: dict,
                   for r in ranks]}
 
 
+def tp_lm_serve(tmp: Path, arch: str, batch: int, prompt: int,
+                gen: int) -> dict:
+    """A serve leg's one-process arm: full ``arch`` through ``LM.prefill``
+    and ``gen`` greedy ``decode_step``s in this process from weights made
+    from SEED -> each step's logits on the host, LM's ids and its prefill
+    seconds; the prompt and ids saved for the ranks
+    (``serve-inputs-<arch>.pt``); the model freed.  For a family with its
+    own limit (TP_SERVE_TOL) also its bf16 floor: the same steps on the
+    same weights widened to f32 (TF32 off), driven by LM's ids, and LM's
+    largest error against them, relative to 1 + |logit| and absolute."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.reducer import tree_map_with_path
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = serve_config(arch)
+    total = prompt + gen
+    pshape = ShapeConfig("smoke", "prefill", prompt, batch)
+    tokens = torch.from_numpy(TokenPipeline(cfg, pshape, seed=SEED)
+                              .prefill_batch(0)["tokens"]).cuda()
+    lm = LM(cfg, max_seq=total, device="cuda")
+    lm.init(SEED, torch.bfloat16)
+
+    def run(drive=None):
+        """The prefill's logits and each decode step's (on the host) and
+        the ids fed: ``drive``'s, else the greedy ones."""
+        logits, cache = lm.prefill(tokens, cache_len=total)
+        out, ids = [logits.float().cpu()], []
+        for s in range(gen):
+            ids.append(logits.argmax(dim=-1)[:, None] if drive is None
+                       else drive[:, s:s + 1])
+            logits, cache = lm.decode_step(cache, ids[-1])
+            out.append(logits.float().cpu())
+        return out, torch.cat(ids, dim=1)
+
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(tokens, cache_len=total)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del logits, cache
+    want, ids = run()
+    out = {"want": want, "ids": ids.cpu(), "prefill_seconds": seconds}
+    if arch in TP_SERVE_TOL:
+        lm.params = tree_map_with_path(lambda _, t: t.float(), lm.params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            f32, _ = run(ids)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        out["lm_vs_f32_max_rel_err"] = max(
+            float(((b - a).abs() / (1 + a.abs())).max())
+            for a, b in zip(f32, want))
+        out["lm_vs_f32_max_abs_err"] = max(
+            float((b - a).abs().max()) for a, b in zip(f32, want))
+    torch.save({"tokens": tokens.cpu(), "ids": ids.cpu()},
+               tmp / f"serve-inputs-{arch}.pt")
+    del lm, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_dist_tp(tmp: Path) -> dict:
     """Tensor-parallel compute over ``model`` (``repro_torch.distributed.
     tensor_parallel``) on the card: TP_WORLD ranks as processes of this
@@ -4774,37 +5014,37 @@ def phase_dist_tp(tmp: Path) -> dict:
     "model") mesh from ``make_dev_mesh(..., backend="gloo")``.
     1. probe: which gloo collectives take CUDA tensors here, bf16 and f32;
        the phase needs all_reduce (sum, max) and all_gather_into_tensor;
-    2. serve: full yi-6b (batch 4, prompt 2048, GEN steps), seeded bf16
-       weights: ``LM.prefill``/``decode_step`` in this process first (its
-       logits kept on the host, the model freed), then the tp steps on the
-       ranks with ``sp_decode`` off and on, driven by ``LM``'s ids: logits
-       within DIST_SERVE_TOL of ``LM``'s, greedy ids ``LM``'s but at near
-       ties; each rank's prefill launches flash once a layer (at its 16 of
-       32 q heads over 2 of 4 kv heads), its decode none;
-    3. train: minicpm-2b at full width, DIST_STEPS steps of the tp step
-       on the ranks against ``build_train_step`` at world size 1 (NCCL, in
-       this process, run first and freed, then again with each batch's
-       rows reversed) on the same weights and batches, at the first depth
-       of TP_TRAIN_LAYERS at which both ranks fit the card (each
-       out-of-memory recorded): loss within REMAT_TOL, grad norm within
-       TP_GRAD_NORM_RTOL and each leaf's gradient norm within
-       TP_LEAF_NORM_RTOL; flash forward and backward
-       once a layer a step on each rank, at 18 of 36 heads.
-    Prints each leg's seconds, each rank's peak memory beside
-    ``model_memory`` for tp on (1, 2), and the bytes the collectives moved
-    and their share of the step (timed between synchronises of the card).
-    gloo's CUDA collectives go through host memory: these are not NCCL's
-    times.  Returns the kernels' launches of both ranks' steps."""
-    import gc
-
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data import TokenPipeline
-    from repro_torch.launch.mesh import make_dev_mesh
-    from repro_torch.models import LM
-
+    2. serve (TP_SERVE_LEGS), seeded bf16 weights:
+       ``LM.prefill``/``decode_step`` in this process first (its logits
+       kept on the host, the model freed), then the tp steps on the ranks
+       driven by ``LM``'s ids: logits within DIST_SERVE_TOL of ``LM``'s
+       (a family's TP_SERVE_TOL, printed beside its bf16 floor), greedy
+       ids ``LM``'s but at near ties, no decode launch; full yi-6b
+       (batch 4, prompt 2048, GEN steps) with ``sp_decode`` off and on,
+       flash once a layer a rank's prefill at its 16 of 32 q heads over
+       2 of 4 kv heads; full mamba2-370m (batch 8, prompt 2000) and full
+       recurrentgemma-9b (batch 4, prompt 2048), TP_REC_GEN steps, with
+       ``sp_decode`` on, the SSD scan 48 times a rank's prefill at 16 of
+       32 heads, the RG-LRU scan 26 times at 2048 of the 4096 width and
+       flash 12 times at 8 of 16 q heads over the one kv head;
+    3. train (TP_TRAIN_LEGS), full width, DIST_STEPS steps of the tp step
+       on the ranks against ``build_train_step`` at world size 1 (NCCL,
+       in this process, run first and freed, then again with each batch's
+       rows reversed) on the same weights and batches, each leg at the
+       first of its depths at which world size 1 and both ranks fit the
+       card (each out-of-memory recorded): minicpm-2b (2 x 1024; 40, 20,
+       10 layers), mamba2-370m (4 x 2048; 48, 24, 12) and
+       recurrentgemma-9b (2 x 1024; 6, 3): loss within REMAT_TOL, grad
+       norm within TP_GRAD_NORM_RTOL and each leaf's gradient norm within
+       TP_LEAF_NORM_RTOL; each kernel and its backward once a layer of
+       its kind a step on each rank (flash at 18 of 36 heads, or 8 of 16;
+       SSD at 16 of 32 heads; RG-LRU at 2048 of 4096).
+    All legs of a depth run in the same two rank processes.  Prints each
+    leg's seconds, each rank's peak memory beside ``model_memory`` for tp
+    on (1, 2), and the bytes the collectives moved and their share of the
+    step (timed between synchronises of the card).  gloo's CUDA
+    collectives go through host memory: these are not NCCL's times.
+    Returns the kernels' launches of both ranks' steps."""
     t_phase = time.perf_counter()
     path_launches: dict = {}
 
@@ -4814,91 +5054,90 @@ def phase_dist_tp(tmp: Path) -> dict:
 
     # the one-process arms run first, each freed before the ranks start:
     # LM serving, then build_train_step at world size 1
-    gc.collect()
-    torch.cuda.empty_cache()
-    arch, batch, prompt = TP_SERVE
-    cfg = serve_config(arch)
-    total = prompt + GEN
-    pshape = ShapeConfig("smoke", "prefill", prompt, batch)
-    tokens = torch.from_numpy(TokenPipeline(cfg, pshape, seed=SEED)
-                              .prefill_batch(0)["tokens"]).cuda()
-    lm = LM(cfg, max_seq=total, device="cuda")
-    lm.init(SEED, torch.bfloat16)
-    t0 = time.perf_counter()
-    logits, cache = lm.prefill(tokens, cache_len=total)
-    torch.cuda.synchronize()
-    lm_prefill = time.perf_counter() - t0
-    want, ids = [logits.float().cpu()], []
-    tok = logits.argmax(dim=-1)[:, None]
-    for _ in range(GEN):
-        ids.append(tok)
-        logits, cache = lm.decode_step(cache, tok)
-        want.append(logits.float().cpu())
-        tok = logits.argmax(dim=-1)[:, None]
-    ids = torch.cat(ids, dim=1)
-    torch.save({"tokens": tokens.cpu(), "ids": ids.cpu()},
-               tmp / "serve-inputs.pt")
-    del lm, logits, cache, tok, tokens
-
-    tried, serve_legs, probe = [], None, None
-    for layers in TP_TRAIN_LAYERS:
-        gc.collect()
-        torch.cuda.empty_cache()
-        dist.init_process_group("nccl", store=dist.FileStore(
-            str(tmp / f"tp-ref-store-{layers}"), 1), rank=0, world_size=1,
-            device_id=torch.device("cuda", 0))
-        try:
-            ref = tp_train_steps(make_dev_mesh(1, 1, device="cuda"), layers)
-            gc.collect()
-            torch.cuda.empty_cache()
-            rev = tp_train_steps(make_dev_mesh(1, 1, device="cuda"), layers,
-                                 reverse=True)
-        finally:
-            dist.destroy_process_group()
-        gc.collect()
-        torch.cuda.empty_cache()
-        ranks = run_tp_ranks(tmp, f"{'train' if tried else 'legs'}{layers}")
-        if serve_legs is None:
+    lm_serve = {arch: tp_lm_serve(tmp, arch, batch, prompt, gen)
+                for arch, batch, prompt, gen, _ in TP_SERVE_LEGS}
+    legs = {arch: depths for arch, depths, _, _ in TP_TRAIN_LEGS}
+    at = {arch: 0 for arch in legs}
+    tried: dict = {arch: [] for arch in legs}
+    ws1: dict = {}
+    done: set = set()
+    probe, job = None, 0
+    while len(done) < len(legs):
+        todo = []
+        for arch, depths in legs.items():
+            while arch not in done:
+                if at[arch] == len(depths):
+                    raise AssertionError(f"dist_tp train {arch}: no depth of "
+                                         f"{depths} fits: {tried[arch]}")
+                layers = depths[at[arch]]
+                if (arch, layers) not in ws1:
+                    ws1[arch, layers] = tp_world_size_1(tmp, arch, layers)
+                if "oom" not in ws1[arch, layers]:
+                    todo.append([arch, layers])
+                    break
+                tried[arch].append({"layers": layers, "fits": False,
+                                    "world_size_1_out_of_memory":
+                                        ws1[arch, layers]["oom"]})
+                at[arch] += 1
+        ranks = run_tp_ranks(tmp, f"job{job}", {
+            "serve": TP_SERVE_LEGS if probe is None else [], "train": todo})
+        job += 1
+        if probe is None:
             if any(r is None for r in ranks):
                 raise AssertionError("dist_tp: a rank was ended before its "
-                                     "serve leg was written")
+                                     "serve legs were written")
             probe = ranks[0]["probe"]
-            serve_legs = tp_serve_report(tmp, [r["serve"] for r in ranks],
-                                         want, cfg, add_launches)
-            emit({"phase": "dist_tp", "leg": "serve", "card": card_line(),
-                  "probe": probe, "arch": arch, "batch": batch,
-                  "prompt_len": prompt, "gen": GEN, "dtype": "bfloat16",
-                  "mesh": {"data": 1, "model": TP_WORLD}, "backend": "gloo",
-                  "tolerance": DIST_SERVE_TOL,
-                  "lm_prefill_seconds": lm_prefill,
-                  "local_param_bytes": [r["serve"]["local_param_bytes"]
-                                        for r in ranks],
-                  "legs": serve_legs, "ids_sample": ids[0, :8].tolist(),
-                  "note": "gloo's CUDA collectives go through host memory: "
-                          "not NCCL's times"})
-        trains = [None if r is None else r.get("train") for r in ranks]
-        if any(r is None or "oom" in r for r in trains):
-            tried.append({"layers": layers, "fits": False,
-                          "out_of_memory": [r and r.get("oom")
-                                            for r in trains]})
-            continue
-        tried.append(tp_train_report(layers, trains, ref, rev,
-                                     add_launches))
-        break
-    else:
-        raise AssertionError(f"dist_tp train: no depth of {TP_TRAIN_LAYERS} "
-                             f"fits: {tried}")
-    emit({"phase": "dist_tp", "leg": "train", "card": card_line(),
-          "arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-          "lr": TRAIN_LR, "steps": DIST_STEPS, "dtype": "bfloat16",
-          "mesh": {"data": 1, "model": TP_WORLD}, "backend": "gloo",
-          "layers": tried[-1]["layers"],
-          "tolerance": {"loss": REMAT_TOL, "grad_norm_rtol":
-                        TP_GRAD_NORM_RTOL, "leaf_norm_rtol":
-                        TP_LEAF_NORM_RTOL},
-          "depths": tried,
-          "note": "gloo's CUDA collectives go through host memory: not "
-                  "NCCL's times",
+            for arch, batch, prompt, gen, _ in TP_SERVE_LEGS:
+                cfg = serve_config(arch)
+                ref = lm_serve[arch]
+                serve_legs = tp_serve_report(
+                    tmp, arch, prompt, gen, [r["serve"][arch] for r in ranks],
+                    ref["want"], cfg, add_launches)
+                emit({"phase": "dist_tp", "leg": "serve", "card": card_line(),
+                      **({"probe": probe} if arch == TP_SERVE_LEGS[0][0]
+                         else {}),
+                      "arch": arch, "batch": batch, "prompt_len": prompt,
+                      "gen": gen, "dtype": "bfloat16",
+                      "mesh": {"data": 1, "model": TP_WORLD},
+                      "backend": "gloo",
+                      "tolerance": TP_SERVE_TOL.get(arch, DIST_SERVE_TOL),
+                      **{k: ref[k] for k in ("lm_vs_f32_max_rel_err",
+                                             "lm_vs_f32_max_abs_err")
+                         if k in ref},
+                      "lm_prefill_seconds": ref["prefill_seconds"],
+                      "local_param_bytes": [r["serve"][arch][
+                          "local_param_bytes"] for r in ranks],
+                      "legs": serve_legs,
+                      "ids_sample": ref["ids"][0, :8].tolist(),
+                      "note": "gloo's CUDA collectives go through host "
+                              "memory: not NCCL's times"})
+            del lm_serve
+        for arch, layers in todo:
+            trains = [None if r is None else r["train"].get(arch)
+                      for r in ranks]
+            if any(t is not None and "oom" in t for t in trains):
+                tried[arch].append({"layers": layers, "fits": False,
+                                    "out_of_memory": [t and t.get("oom")
+                                                      for t in trains]})
+                at[arch] += 1
+                break            # the later legs did not run: the next job
+            tried[arch].append(tp_train_report(
+                arch, layers, trains, ws1[arch, layers]["ref"],
+                ws1[arch, layers]["rev"], add_launches))
+            done.add(arch)
+    for arch, _, batch, seq in TP_TRAIN_LEGS:
+        emit({"phase": "dist_tp", "leg": "train", "card": card_line(),
+              "arch": arch, "batch": batch, "seq": seq, "lr": TRAIN_LR,
+              "steps": DIST_STEPS, "dtype": "bfloat16",
+              "mesh": {"data": 1, "model": TP_WORLD}, "backend": "gloo",
+              "layers": tried[arch][-1]["layers"],
+              "tolerance": {"loss": REMAT_TOL, "grad_norm_rtol":
+                            TP_GRAD_NORM_RTOL, "leaf_norm_rtol":
+                            TP_LEAF_NORM_RTOL},
+              "depths": tried[arch],
+              "note": "gloo's CUDA collectives go through host memory: not "
+                      "NCCL's times"})
+    emit({"phase": "dist_tp", "rank_jobs": job,
           "seconds": time.perf_counter() - t_phase})
     return path_launches
 

@@ -66,21 +66,26 @@ attention layers decode through
 :func:`~.decode_attn.sp_decode_attention`.
 
 ``mode="tp"`` with a ``model`` axis above 1 runs tensor-parallel compute
-over that axis for the dense and vlm families
+over that axis for the dense, vlm, ssm and hybrid families
 (:mod:`~.tensor_parallel`): each rank reads its block of every leaf the
-rules split over ``model`` (heads, kv heads, mlp, the padded vocab) in
-place, never gathered (``split_of``'s ``in_place``), the context reaches
-the model, whose products meet the whole residual stream through the
-``model`` group's all-reduces (a leaf replicated over ``model`` that
-each rank uses for its own heads only has its gradient summed over
-``model`` there: ``transformer._partly_used``).
-The logits leave as this rank's vocab block; a prefill's cache, written
-whole on every rank, leaves as this rank's block of its slots under
-``sp_decode``.  Every step builder raises there for the ssm, hybrid, moe
-and encdec families, whose layers have no tensor-parallel compute yet
-(ROADMAP A10b-4b).  ``build_decode_step`` in ``fsdp`` with
-``ctx.sp_decode`` raises for a config whose decode reaches
-``sp_decode_attention``, where the reference fails too.
+rules split over ``model`` (heads, kv heads, mlp, ssm heads and
+``d_inner``, the lru width, the padded vocab) in place, never gathered
+(``split_of``'s ``in_place``), the context reaches the model, whose
+products meet the whole residual stream through the ``model`` group's
+all-reduces (a leaf replicated over ``model`` that each rank uses for
+its own heads or width only has its gradient summed over ``model``
+there: ``transformer._partly_used``, ``ssm._own_params``, the rec
+gates).  The logits leave as this rank's vocab block; a prefill's
+cache holds this rank's block of the ssm heads and the lru width as the
+model wrote it, and its attention slots, written whole on every rank,
+leave as this rank's block under ``sp_decode``.  Every step builder
+raises there for the moe and encdec families, whose layers have no
+tensor-parallel compute yet (ROADMAP A10b-4b), for an ssm config whose
+rules split ``d_inner`` but not its heads, and for a hybrid one whose
+``model`` axis does not divide the RG-LRU's gate blocks.
+``build_decode_step`` in ``fsdp`` with ``ctx.sp_decode`` raises for a
+config whose decode reaches ``sp_decode_attention``, where the
+reference fails too.
 """
 from __future__ import annotations
 
@@ -102,6 +107,7 @@ from repro_torch.distributed.sharding import (
     map_tree, axes_tree, batch_pspec, batch_shardings, cache_shardings,
     data_axes, opt_shardings, params_shardings, shapes_tree,
 )
+from repro_torch.models import griffin, ssm
 from repro_torch.models.layers import spec_leaves
 from repro_torch.optim.optimizer import OptState, adamw_update
 
@@ -145,17 +151,26 @@ def cache_specs(lm, B: int, cache_len: int, dtype=torch.bfloat16) -> dict:
 
 
 # the families whose layers have no tensor-parallel compute over 'model' yet
-NOT_TP = ("ssm", "hybrid", "moe", "encdec")
+NOT_TP = ("moe", "encdec")
 
 
 def _check_mode(ctx: DistContext, cfg) -> None:
-    if ctx.mode == "tp" and ctx.axes.get("model", 1) > 1 and \
-            cfg.family in NOT_TP:
+    """Raises before a step is built where tp over ``model`` cannot run
+    ``cfg``: its family's layers (``NOT_TP``), or a split the ssm and rec
+    mixers refuse (``ssm.check_tp``, ``griffin.check_tp``)."""
+    if not tensor_parallel.over_model(ctx):
+        return
+    if cfg.family in NOT_TP:
         raise NotImplementedError(
             f"{cfg.name}: mode='tp' with a 'model' axis above 1 needs "
             f"tensor-parallel compute in the {cfg.family} family's layers, "
             f"which is not ported yet (ROADMAP A10b-4b); use mode='fsdp', "
             f"or a 'model' axis of 1 (data parallel)")
+    kinds = set(cfg.layer_kinds())
+    if "ssm" in kinds:
+        ssm.check_tp(cfg, ctx)
+    if "rec" in kinds:
+        griffin.check_tp(cfg, ctx)
 
 
 # ----------------------------------------------------------------------
@@ -360,21 +375,24 @@ def _place(ctx: DistContext, t, spec):
                               run_check=False)
 
 
-def _own_slots(ctx: DistContext, cache: dict, specs: dict) -> dict:
-    """A cache written whole on every rank (its rows this rank's) -> this
-    rank's block of each dimension its spec splits over ``model`` (the
-    slots under ``sp_decode``), copied out so the whole one is freed."""
+def _own_slots(ctx: DistContext, cache: dict, axes: dict) -> dict:
+    """A prefill's cache (its rows this rank's; the leaves the layers split
+    over ``model`` already this rank's block, ``transformer.init_cache``)
+    -> this rank's block of the attention slots the model wrote whole on
+    every rank, where ``axes`` (``LM.cache_axes``) puts them on
+    ``cache_seq`` and the rules split that over ``model`` (``sp_decode``),
+    copied out so the whole one is freed."""
     group = tensor_parallel.model_group(ctx)
-    if group is None:
+    if group is None or ctx.rules.get("cache_seq") != "model":
         return cache
 
-    def one(t, spec):
-        for d, e in enumerate(spec):
-            if e == "model" or (isinstance(e, tuple) and "model" in e):
-                n = t.shape[d] // dist.get_world_size(group)
-                t = t.narrow(d, dist.get_rank(group) * n, n).clone()
-        return t
-    return {**map_tree(one, {k: cache[k] for k in specs}, specs),
+    def one(t, ax):
+        if "cache_seq" not in ax:
+            return t
+        d = ax.index("cache_seq")
+        n = t.shape[d] // dist.get_world_size(group)
+        return t.narrow(d, dist.get_rank(group) * n, n).clone()
+    return {**map_tree(one, {k: cache[k] for k in axes}, axes),
             "filled": cache["filled"]}
 
 
@@ -420,7 +438,7 @@ def build_prefill_step(lm, ctx: DistContext, shape,
                                    gather=gather, **local)
         prefill_fn.gather_stats = gather.stats
         return _place(ctx, logits, logits_sh), _place_cache(
-            ctx, _own_slots(ctx, cache, c_sh), c_sh)
+            ctx, _own_slots(ctx, cache, lm.cache_axes(ctx)), c_sh)
 
     return prefill_fn, (p_sh, b_sh, logits_sh, c_sh)
 

@@ -1,5 +1,5 @@
 """Tensor-parallel compute over the mesh's ``model`` axis (Megatron's
-operators), for the tp steps of the dense and vlm families.
+operators), for the tp steps of the dense, vlm, ssm and hybrid families.
 
 The reference has no module for this: its GSPMD steps split heads, kv
 heads, mlp and the padded vocab over ``model`` (``make_rules``,
@@ -13,8 +13,11 @@ operators on the ``model`` group:
   backward: the input to a column-split product (wq, wk, wv; w_gate,
   w_up; the logits' vocab block);
 - :func:`from_model`: an all-reduce forward, the identity backward: the
-  output of a row-split product (wo, w_down), the vocab-split
-  embedding's rows, the cross entropy's sums;
+  output of a row-split product (wo, w_down, a mixer's w_out), the
+  vocab-split embedding's rows, the cross entropy's sums;
+- :func:`sum_model`: an all-reduce both ways: a statistic every rank's
+  block feeds and every rank's block reads in its own way (mamba2's
+  gated RMS norm over the split ``d_inner``);
 - :func:`gather_model`: an all-gather along a dimension, for the no-grad
   serve paths (the k/v heads a replicated cache holds, the q heads
   ``sp_decode_attention`` reads); its backward raises;
@@ -35,12 +38,17 @@ import torch.distributed as dist
 NEG = -1e30
 
 
+def over_model(ctx) -> bool:
+    """Whether ``ctx`` is a tp context whose ``model`` axis has more than
+    one rank (read from its axes: no ranks needed)."""
+    return ctx is not None and ctx.mode == "tp" and \
+        ctx.axes.get("model", 1) > 1
+
+
 def model_group(ctx):
     """The ``model`` axis's process group of a tp context whose ``model``
     axis has more than one rank, else ``None``."""
-    if ctx is None or ctx.mode != "tp" or ctx.axes.get("model", 1) <= 1:
-        return None
-    return ctx.group(("model",))
+    return ctx.group(("model",)) if over_model(ctx) else None
 
 
 def _summed(x, group):
@@ -57,7 +65,11 @@ class _ToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _summed(g, ctx.group), None
+        # gloo's worker thread may still hold the all-reduced tensor for a
+        # moment after the call returns: a copy, so that a leaf's gradient
+        # (wk/wv, w_B, w_C, conv_w, the rec gates) is freed as soon as the
+        # step's per-unit gather hands it on
+        return _summed(g, ctx.group).clone(), None
 
 
 class _FromModel(torch.autograd.Function):
@@ -68,6 +80,17 @@ class _FromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
 
 
 class _GatherModel(torch.autograd.Function):
@@ -98,6 +121,15 @@ def from_model(x, group):
     """The sum over the ``model`` ranks of their partial ``x`` (a
     row-split product's output); the gradient passes as it is."""
     return x if group is None else _FromModel.apply(x, group)
+
+
+def sum_model(x, group):
+    """The sum over the ``model`` ranks of their ``x``, where each rank
+    uses the sum for its own block only: the gradient of each rank's ``x``
+    is the sum of every rank's gradient of the sum (an all-reduce both
+    ways).  ``from_model``'s identity backward is right only where what
+    follows is the same on every rank."""
+    return x if group is None else _SumModel.apply(x, group)
 
 
 def gather_model(x, dim: int, group):

@@ -13,14 +13,26 @@ grad it runs the scan's ``autograd.Function``, whose backward is the
 hand-written backward kernel on the card and the plain backward on the
 CPU.  The one-token decode step is plain PyTorch,
 as in the reference.  Gates and coefficients are f32.
+
+Under a tp context whose rules split ``lru`` over a ``model`` axis above
+one rank, each rank holds its block of the width, read in place
+(:func:`width_block`): ``w_gate``, ``w_x``, ``conv_w``, ``gate_a_b``,
+``gate_x_b``, ``lambda_p`` and ``w_out``'s rows, and the conv and lru
+states; the input enters through ``to_model``, the block-diagonal gates
+(whole on every rank) give this rank its ``NUM_BLOCKS / R`` blocks
+through ``to_model``, the scan runs on this rank's width and ``w_out``'s
+partial output leaves through ``from_model``.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.rg_lru.ops import rglru_scan as _scan
 from repro_torch.models.layers import P, causal_conv1d
 
@@ -88,11 +100,54 @@ def rglru_step(p, x, state):
     return h[:, None, :].to(x.dtype), h.to(x.dtype)
 
 
+@dataclass(frozen=True)
+class WidthBlock:
+    """A tp rank's block of the RG-LRU width: the ``model`` group and the
+    gates' blocks [first, first + blocks), with their channels."""
+    group: object
+    first: int
+    blocks: int
+
+
+def check_tp(cfg, ctx) -> None:
+    """Raises ``NotImplementedError`` where ``ctx`` splits ``lru`` over a
+    ``model`` axis above one rank that does not divide ``NUM_BLOCKS``: a
+    rank's width would cut through a block of the gates.  Reads the rules
+    only (no ranks)."""
+    if tp.over_model(ctx) and ctx.rules.get("lru") is not None and \
+            NUM_BLOCKS % ctx.axes["model"]:
+        raise NotImplementedError(
+            f"{cfg.name}: tp splits the RG-LRU width ({cfg.lru_width}) over "
+            f"{ctx.axes['model']} 'model' ranks, which do not divide its "
+            f"{NUM_BLOCKS} gate blocks, so a rank's width cuts through a "
+            f"block")
+
+
+def width_block(cfg, ctx) -> WidthBlock | None:
+    """This rank's block of the width under ``ctx``: ``None`` without a tp
+    ``model`` group or where the rules leave ``lru`` whole (then the mixer
+    runs whole on every rank)."""
+    check_tp(cfg, ctx)
+    group = tp.model_group(ctx)
+    if group is None or ctx.rules.get("lru") is None:
+        return None
+    blocks = NUM_BLOCKS // dist.get_world_size(group)
+    return WidthBlock(group, dist.get_rank(group) * blocks, blocks)
+
+
 def recurrent_forward(p, x_res, cfg, conv_state=None, lru_state=None,
-                      decode: bool = False):
+                      decode: bool = False, ctx=None):
     """The Griffin recurrent mixer.  x_res (B,S,d) -> (y (B,S,d),
     (conv_state, lru_state)).  Prefill (``decode=False``) starts from zero
-    states; decode takes one token and the cached states."""
+    states; decode takes one token and the cached states; under a tp
+    context, this rank's width (module docstring)."""
+    wb = width_block(cfg, ctx)
+    group = None if wb is None else wb.group
+    if wb is not None:
+        p = {**p, **{n: tp.to_model(p[n], group).narrow(0, wb.first,
+                                                        wb.blocks)
+                     for n in ("gate_a_w", "gate_x_w")}}
+    x_res = tp.to_model(x_res, group)
     gate = gelu_tanh(x_res @ p["w_gate"])
     xl = x_res @ p["w_x"]
     xl, new_conv = causal_conv1d(xl, p["conv_w"], conv_state, activation=False)
@@ -100,4 +155,5 @@ def recurrent_forward(p, x_res, cfg, conv_state=None, lru_state=None,
         h, new_state = rglru_step(p, xl, lru_state)
     else:
         h, new_state = rglru_scan(p, xl)
-    return (gate * h) @ p["w_out"], (new_conv, new_state)
+    return tp.from_model((gate * h) @ p["w_out"], group), (new_conv,
+                                                           new_state)

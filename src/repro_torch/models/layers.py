@@ -127,6 +127,20 @@ def rms_norm(x, weight, eps: float):
     return out.to(x.dtype)
 
 
+def split_rms_norm(x, weight, eps: float, width: int, group):
+    """:func:`rms_norm` of a last dimension split over the ``model`` ranks
+    of ``group``: ``x`` and ``weight`` are this rank's block, and the mean
+    square is every rank's sum of squares in f32, summed with
+    ``sum_model`` (each rank's block reads it), over the whole ``width``.
+    Without a group, :func:`rms_norm`."""
+    if group is None:
+        return rms_norm(x, weight, eps)
+    xf = x.float()
+    var = tp.sum_model(xf.square().sum(dim=-1, keepdim=True), group) / width
+    out = xf * torch.rsqrt(var + eps) * (1.0 + weight.float())
+    return out.to(x.dtype)
+
+
 def head_rms_norm(x, weight, eps: float):
     """Per-head q/k norm (qwen3): x (..., hd), weight (hd,)."""
     return rms_norm(x, weight, eps)

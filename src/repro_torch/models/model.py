@@ -136,10 +136,10 @@ class LM:
             params["embed"] if self.cfg.tie_embeddings else params["w_out"])
 
     def _prompt_cache(self, tokens, cache_len, vision_embeds, encoder_frames,
-                      dtype):
+                      dtype, ctx=None):
         """A cache for the whole prompt, in ``dtype``: a vlm's counts its
         patches as well as its text, an encdec's cross K/V hold the frames
-        given."""
+        given; under a tp context, :meth:`init_cache`'s blocks."""
         B, S = tokens.shape
         if self.cfg.family == "vlm" and vision_embeds is not None:
             S += vision_embeds.shape[1]
@@ -147,7 +147,7 @@ class LM:
         if self.cfg.family == "encdec" and encoder_frames is not None:
             return encdec.init_cache(self.cfg, B, slots, dtype, self.device,
                                      enc_len=encoder_frames.shape[1])
-        return self.init_cache(B, slots, dtype)
+        return self.init_cache(B, slots, dtype, ctx)
 
     def forward(self, tokens, *, params=None, want_cache: bool = False,
                 cache_len: int | None = None, vision_embeds=None,
@@ -178,7 +178,7 @@ class LM:
         the moe layers then route the group's tokens, as the reference's
         step does (:mod:`repro_torch.models.moe`); under tp with a
         ``model`` axis above one rank, ``params`` this rank's blocks of
-        the heads, mlp and vocab, the embedding, the logits and the cross
+        the heads, mlp, ssm heads, lru width and vocab, the embedding, the logits and the cross
         entropy vocab-split (``distributed/tensor_parallel.py``), the
         tied embedding's two gradients on its local vocab block.
         ``remat``: none, dots
@@ -214,7 +214,7 @@ class LM:
         rank's vocab block.  ``gather`` as :meth:`loss`."""
         params = self.params if params is None else params
         cache = self._prompt_cache(tokens, cache_len, vision_embeds,
-                                   encoder_frames, params["embed"].dtype)
+                                   encoder_frames, params["embed"].dtype, ctx)
         x, _ = self._hidden(params, tokens, cache, vision_embeds,
                             encoder_frames, ctx, gather=gather)
         return self._logits(params, x[:, -1], gather, ctx), cache
@@ -259,14 +259,17 @@ class LM:
         cache["filled"] = filled + 1
         return self._logits(params, x, gather, ctx)[:, 0], cache
 
-    def init_cache(self, B: int, cache_len: int, dtype=None) -> dict:
+    def init_cache(self, B: int, cache_len: int, dtype=None,
+                   ctx=None) -> dict:
         """Zeros cache; ``dtype`` defaults to the parameters' (a prefill
-        cache holds activations, which are in that dtype)."""
+        cache holds activations, which are in that dtype); under a tp
+        context, this rank's block of the leaves the layers split over
+        ``model`` (``transformer.init_cache``)."""
         if self.cfg.family == "encdec":
             return encdec.init_cache(self.cfg, B, cache_len,
                                      dtype or self.dtype, self.device)
         return transformer.init_cache(self.cfg, B, cache_len,
-                                      dtype or self.dtype, self.device)
+                                      dtype or self.dtype, self.device, ctx)
 
     def cache_axes(self, ctx=None) -> dict:
         """The logical axes of the cache's leaves (its ``filled`` count

@@ -21,8 +21,8 @@ arrays).  The hybrid family's attention caches are rings of
 hook (:class:`WholeParams` by default; a sharded step's per-unit gather,
 ``distributed/fsdp.py``).
 
-Under a tp context with a ``model`` axis above one rank (the dense and
-vlm families) each rank holds its block of the heads (where ``make_rules``
+Under a tp context with a ``model`` axis above one rank (the dense,
+vlm, ssm and hybrid families) each rank holds its block of the heads (where ``make_rules``
 splits them), of the kv heads (where it splits those) and of the mlp
 width, read in place, and the residual stream stays whole on every rank:
 an attention block's and a SwiGLU's input enters through ``to_model``,
@@ -35,7 +35,11 @@ whole on every rank.  The cache holds every kv head (the reference's
 ``model`` before it writes them, and so does decode before its write;
 decode then attends with its own q heads, or under ``sp_decode`` gathers
 q's heads too, runs ``sp_decode_attention`` over its block of the slots
-and keeps its own heads of the output.
+and keeps its own heads of the output.  The ssm and rec mixers split
+their own width (``ssm.py``, ``griffin.py``), a rec block's MLP its
+``d_ff``; their caches hold this rank's block of the ssm heads and of
+the lru width, and a mamba2 layer's conv state every rank's channels,
+gathered before each write.
 """
 from __future__ import annotations
 
@@ -256,22 +260,23 @@ def attn_block_fwd(lp, x, cfg, positions, entry, ctx=None):
     return x, aux
 
 
-def ssm_block_fwd(lp, x, cfg, entry):
+def ssm_block_fwd(lp, x, cfg, entry, ctx=None):
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
-    y, (conv_st, ssm_st) = ssm.ssm_forward(lp["mixer"], h, cfg)
+    y, (conv_st, ssm_st) = ssm.ssm_forward(lp["mixer"], h, cfg, ctx)
     if entry is not None:
-        entry["conv"].copy_(conv_st)
+        entry["conv"].copy_(ssm.whole_conv(conv_st, cfg, ctx))
         entry["ssm"].copy_(ssm_st)
     return x + y
 
 
-def rec_block_fwd(lp, x, cfg, entry):
+def rec_block_fwd(lp, x, cfg, entry, ctx=None):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, (conv_st, lru_st) = griffin.recurrent_forward(lp["mixer"], h, cfg)
+    y, (conv_st, lru_st) = griffin.recurrent_forward(lp["mixer"], h, cfg,
+                                                     ctx=ctx)
     x = x + y
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     x = x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                   lp["mlp"]["w_down"])
+                   lp["mlp"]["w_down"], ctx)
     if entry is not None:
         entry["conv"].copy_(conv_st)
         entry["lru"].copy_(lru_st)
@@ -280,11 +285,12 @@ def rec_block_fwd(lp, x, cfg, entry):
 
 def block_fwd(kind, lp, x, cfg, positions, entry, ctx=None):
     """One block over full sequences -> (x, aux loss or None); ``ctx``
-    reaches the moe FFN (:func:`repro_torch.models.moe.moe_ffn`)."""
+    reaches the moe FFN (:func:`repro_torch.models.moe.moe_ffn`) and the
+    tensor-parallel layers."""
     if kind == "ssm":
-        return ssm_block_fwd(lp, x, cfg, entry), None
+        return ssm_block_fwd(lp, x, cfg, entry, ctx), None
     if kind == "rec":
-        return rec_block_fwd(lp, x, cfg, entry), None
+        return rec_block_fwd(lp, x, cfg, entry, ctx), None
     return attn_block_fwd(lp, x, cfg, positions, entry, ctx)
 
 
@@ -319,33 +325,34 @@ def attn_block_dec(lp, x, cfg, pos, entry, ctx=None):
                     ctx)[0]
 
 
-def ssm_block_dec(lp, x, cfg, entry):
+def ssm_block_dec(lp, x, cfg, entry, ctx=None):
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
     y, (conv_st, ssm_st) = ssm.ssm_decode_step(
-        lp["mixer"], h, cfg, entry["conv"], entry["ssm"])
-    entry["conv"].copy_(conv_st)
+        lp["mixer"], h, cfg, ssm.own_conv(entry["conv"], cfg, ctx),
+        entry["ssm"], ctx)
+    entry["conv"].copy_(ssm.whole_conv(conv_st, cfg, ctx))
     entry["ssm"].copy_(ssm_st)
     return x + y
 
 
-def rec_block_dec(lp, x, cfg, entry):
+def rec_block_dec(lp, x, cfg, entry, ctx=None):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     y, (conv_st, lru_st) = griffin.recurrent_forward(
         lp["mixer"], h, cfg, conv_state=entry["conv"],
-        lru_state=entry["lru"], decode=True)
+        lru_state=entry["lru"], decode=True, ctx=ctx)
     entry["conv"].copy_(conv_st)
     entry["lru"].copy_(lru_st)
     x = x + y
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                      lp["mlp"]["w_down"])
+                      lp["mlp"]["w_down"], ctx)
 
 
 def block_dec(kind, lp, x, cfg, pos, entry, ctx=None):
     if kind == "ssm":
-        return ssm_block_dec(lp, x, cfg, entry)
+        return ssm_block_dec(lp, x, cfg, entry, ctx)
     if kind == "rec":
-        return rec_block_dec(lp, x, cfg, entry)
+        return rec_block_dec(lp, x, cfg, entry, ctx)
     return attn_block_dec(lp, x, cfg, pos, entry, ctx)
 
 
@@ -455,29 +462,38 @@ def decoder_decode(params, x, cfg, pos, cache, *, ctx=None, gather=WHOLE):
     return x
 
 
-def init_cache(cfg, B: int, cache_len: int, dtype, device):
+def init_cache(cfg, B: int, cache_len: int, dtype, device, ctx=None):
     """Zeros cache for the decoder stack, in the reference's layout, plus
     ``filled``: the host-side count of slots every sequence has filled
     (all sequences advance together), which bounds decode's writes into a
-    full kv cache (a window cache is a ring and never runs out)."""
+    full kv cache (a window cache is a ring and never runs out).  Under a
+    tp context, this rank's block of the leaves its layers split over
+    ``model`` (an ssm state's heads, a rec layer's conv and lru width;
+    :func:`cache_axes`)."""
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
+
+    kinds = cfg.layer_kinds()
+    hb = ssm.head_block(cfg, ctx) if "ssm" in kinds else None
+    wb = griffin.width_block(cfg, ctx) if "rec" in kinds else None
+    heads = cfg.ssm_heads if hb is None else hb.heads
+    width = cfg.lru_width if wb is None else \
+        cfg.lru_width // griffin.NUM_BLOCKS * wb.blocks
 
     def entry(kind, *lead, slots=cache_len):
         if kind == "ssm":
             C = cfg.d_inner + 2 * cfg.ssm_state
             return {"conv": zeros(*lead, B, cfg.conv_width - 1, C),
-                    "ssm": zeros(*lead, B, cfg.ssm_heads, cfg.ssm_headdim,
+                    "ssm": zeros(*lead, B, heads, cfg.ssm_headdim,
                                  cfg.ssm_state)}
         if kind == "rec":
-            return {"conv": zeros(*lead, B, cfg.conv_width - 1, cfg.lru_width),
-                    "lru": zeros(*lead, B, cfg.lru_width)}
+            return {"conv": zeros(*lead, B, cfg.conv_width - 1, width),
+                    "lru": zeros(*lead, B, width)}
         KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         return {"k": zeros(*lead, B, KV, slots, hd),
                 "v": zeros(*lead, B, KV, slots, hd)}
 
     pos = torch.zeros((B,), dtype=torch.int32, device=device)
-    kinds = cfg.layer_kinds()
     if len(set(kinds)) == 1:
         return {"stack": entry(kinds[0], cfg.num_layers), "pos": pos,
                 "filled": 0}

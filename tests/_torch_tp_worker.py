@@ -11,16 +11,19 @@ Each job of this mesh (``mesh`` == [D, M]) runs in ``tp`` mode on a gloo
 mesh of D x M CPU ranks, from the case's f32 weights:
 
 - ``train``: two ``build_train_step`` steps (``remat``,
-  ``microbatches``).
+  ``microbatches``; ``seq`` and ``batch`` where the job gives them, else
+  ``SEQ`` and ``BATCH``).
   Rank 0 writes the losses, grad norms and lrs, the gathered m after
   step 1 and master and parameters after step 2 into ``DIR/result.npz``;
   every rank writes into ``DIR/bytes-R.json`` the elements of each
   parameter leaf and of each leaf of m, v and master it holds before the
   steps and after each (``[local, full]``), and the step's
   ``gather_stats``.
-- ``serve``: ``build_prefill_step`` (a cache of ``CACHE`` slots past the
-  prompt, a vlm's patches counted) and ``STEPS`` greedy
-  ``build_decode_step`` steps on its own ids (``sp_decode``): rank 0
+- ``serve``: ``build_prefill_step`` (a cache of ``cache_len`` slots: the
+  prompt, a vlm's patches, the steps) and ``STEPS`` greedy
+  ``build_decode_step`` steps on its own ids (``sp_decode``; the job's
+  ``steps``, ``cache``, ``prompt`` and ``batch`` where it gives them):
+  rank 0
   writes each step's gathered logits, the ids and the gathered cache
   after prefill and after the last step; every rank its ``gather_stats``.
 
@@ -88,12 +91,13 @@ def run_train(job, mesh, data, out: dict, nbytes: dict) -> None:
 
     key, src = job["key"], job["inputs"]
     cfg = config(job["arch"], job["replace"], get_config)
-    lm = LM(cfg, max_seq=SEQ, device="cpu")
+    lm = LM(cfg, max_seq=job.get("seq", SEQ), device="cpu")
     ctx = DistContext.create(cfg, mesh, mode="tp")
     tc = TrainConfig(microbatches=job["microbatches"], remat=job["remat"],
                      **TRAIN)
     step_fn, (p_sh, o_sh, _) = build_train_step(
-        lm, tc, ctx, ShapeConfig("t", "train", SEQ, BATCH))
+        lm, tc, ctx, ShapeConfig("t", "train", job.get("seq", SEQ),
+                                 job.get("batch", BATCH)))
     params = distribute_tree(lm.load_reference(serve_worker._tree(
         _inputs(data, f"{src}|params|"))), ctx, p_sh)
     opt = init_sharded_opt_state(ctx, params, o_sh)
@@ -126,27 +130,28 @@ def run_serve(job, mesh, data, out: dict, nbytes: dict) -> None:
 
     key, src = job["key"], job["inputs"]
     cfg = config(job["arch"], job["replace"], get_config)
-    total = cache_len(cfg)
+    total, steps = job.get("cache", cache_len(cfg)), job.get("steps", STEPS)
+    prompt = _inputs(data, f"{src}|batch|")
+    B, S = job.get("batch", BATCH), job.get("prompt", PROMPT)
     lm = LM(cfg, max_seq=total, device="cpu")
     ctx = DistContext.create(cfg, mesh, mode="tp",
                              sp_decode=job["sp_decode"])
     pf, (p_sh, _, _, _) = build_prefill_step(
-        lm, ctx, ShapeConfig("p", "prefill", PROMPT, BATCH), cache_len=total)
-    df, _ = build_decode_step(lm, ctx, ShapeConfig("d", "decode", total,
-                                                   BATCH))
+        lm, ctx, ShapeConfig("p", "prefill", S, B), cache_len=total)
+    df, _ = build_decode_step(lm, ctx, ShapeConfig("d", "decode", total, B))
     params = distribute_tree(lm.load_reference(serve_worker._tree(
         _inputs(data, f"{src}|params|"))), ctx, p_sh)
 
     def full_cache(cache):
         return {p: serve_worker._full(t) for p, t in serve_worker._flat(
             {k: v for k, v in cache.items() if k != "filled"}).items()}
-    logits, cache = pf(params, _inputs(data, f"{src}|batch|"))
+    logits, cache = pf(params, prompt)
     stats = [dict(pf.gather_stats)]
     got = [serve_worker._full(logits)]
     out[f"{key}|cache0"] = full_cache(cache)
     ids = []
     tok = torch.from_numpy(got[-1]).argmax(dim=-1)[:, None]
-    for _ in range(STEPS):
+    for _ in range(steps):
         ids.append(tok[:, 0].numpy().copy())
         logits, cache = df(params, cache, {"token": tok})
         stats.append(dict(df.gather_stats))
@@ -163,7 +168,7 @@ def ops_rank(data, rank: int, n: int, group) -> dict:
     ``group``; ``group`` None: the one-rank run, the plain functions),
     with gradients of ``sum(out * c)`` and of the cross entropy."""
     from repro_torch.distributed import tensor_parallel as tp
-    from repro_torch.models.layers import softmax_xent
+    from repro_torch.models.layers import softmax_xent, split_rms_norm
 
     def block(a, dim):
         t = torch.from_numpy(a)
@@ -191,6 +196,27 @@ def ops_rank(data, rank: int, n: int, group) -> dict:
         except RuntimeError as e:
             refused = "no-grad" in str(e)
         out.update(gather_refused=torch.tensor(refused))
+    # mamba2's gated norm over a split width, then a row-split product:
+    # the mean square summed over the ranks both ways (``sum_model``), and
+    # (``norm_identity_*``) with ``from_model``'s identity backward
+    width, eps = data["y"].shape[-1], 1e-5
+
+    def gated_norm(sum_fn):
+        y, nw = leaf(block(data["y"], 2)), leaf(block(data["norm_w"], 0))
+        w_out = leaf(block(data["w_row"], 0))
+        if sum_fn is None:
+            h = split_rms_norm(y, nw, eps, width, group)
+        else:
+            var = sum_fn(y.square().sum(dim=-1, keepdim=True), group) / width
+            h = y * torch.rsqrt(var + eps) * (1.0 + nw)
+        o = tp.from_model(h @ w_out, group)
+        (o * torch.from_numpy(data["c"])).sum().backward()
+        return o.detach(), y.grad, nw.grad, w_out.grad
+    o, gy, gw, gw_out = gated_norm(None)
+    out.update(norm=o, norm_gy=gy, norm_gw=gw, norm_gw_out=gw_out)
+    if group is not None:
+        _, gy, gw, _ = gated_norm(tp.from_model)
+        out.update(norm_identity_gy=gy, norm_identity_gw=gw)
     table = leaf(block(data["table"], 0))               # (Vp, d) rows
     e = tp.vocab_embed(table, torch.from_numpy(data["ids"]), group)
     (e * torch.from_numpy(data["c"])).sum().backward()

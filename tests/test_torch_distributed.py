@@ -368,16 +368,16 @@ def test_each_rank_holds_its_share_of_the_optimizer_state(run):
 # ----------------------------------------------------------------------
 
 # one config of each family whose layers have no tensor-parallel compute
-NOT_TP = ("mamba2-370m", "recurrentgemma-9b", "qwen2-moe-a2.7b",
-          "whisper-tiny")
+NOT_TP = ("qwen2-moe-a2.7b", "whisper-tiny")
 
 
 @pytest.mark.parametrize("arch", NOT_TP)
 def test_tp_mode_with_a_model_axis_raises_not_implemented(arch):
-    """The ssm, hybrid, moe and encdec families have no tensor-parallel
-    compute over ``model`` yet: ``build_train_step`` in tp with a
-    ``model`` axis above one rank raises, naming ROADMAP A10b-4b (the
-    dense and vlm families run there: ``tests/test_torch_tp.py``)."""
+    """The moe and encdec families have no tensor-parallel compute over
+    ``model`` yet: ``build_train_step`` in tp with a ``model`` axis above
+    one rank raises, naming ROADMAP A10b-4b (the dense and vlm families
+    run there: ``tests/test_torch_tp.py``; the ssm and hybrid families:
+    ``tests/test_torch_tp_recurrent.py``)."""
     cfg = get_config(arch, reduced=True)
     lm = LM(cfg, max_seq=32, device="cpu")
     shape = ShapeConfig("t", "train", 32, 8)

@@ -294,12 +294,12 @@ def test_cache_specs_match_the_reference(arch):
             assert got == want, (arch, B, S, dt)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
-                                  "qwen2-moe-a2.7b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-tiny"])
 def test_tp_with_a_model_axis_raises_not_implemented(arch):
-    """The serve steps of the ssm, hybrid, moe and encdec families in tp
-    with a ``model`` axis above one rank raise, naming ROADMAP A10b-4b
-    (the dense and vlm families serve there: ``tests/test_torch_tp.py``)."""
+    """The serve steps of the moe and encdec families in tp with a
+    ``model`` axis above one rank raise, naming ROADMAP A10b-4b (the
+    dense and vlm families serve there: ``tests/test_torch_tp.py``; the
+    ssm and hybrid families: ``tests/test_torch_tp_recurrent.py``)."""
     cfg = get_config(arch, reduced=True)
     lm = LM(cfg, max_seq=32, device="cpu")
     for axes in ({"data": 2, "model": 2}, {"data": 1, "model": 4},

@@ -7,14 +7,19 @@ One spawn of ``tests/_torch_tp_worker.py --ops`` ranks a world of 2 and of
 4 runs every operator on its blocks of the same numpy inputs, forward and
 backward: ``to_model``/``from_model`` around a column-split product, a
 tanh and a row-split product (an MLP); ``gather_model`` of a heads
-dimension (forward only: its backward raises); ``vocab_embed`` of a
+dimension (forward only: its backward raises); ``split_rms_norm`` (its
+``sum_model``) of a split width, then a row-split product (mamba2's
+gated norm; also with ``from_model`` in ``sum_model``'s place, whose
+identity backward gives the norm's input a wrong gradient); ``vocab_embed`` of a
 vocab-split table; ``vocab_xent`` of vocab-split logits whose padded
 columns (13 of 16 used) lie in the last rank's block.  The parent runs
 the same function with no group: the plain products, ``table[ids]`` and
 ``layers.softmax_xent``.  Forward outputs within 1e-6 (the sums over
 ranks add in another order; the gather and the lookup exactly),
 gradients within 1e-6, each rank's gradient of a split leaf its block of
-the one-rank gradient, the padded columns' gradient exactly 0.  A world
+the one-rank gradient, the padded columns' gradient exactly 0.  In the
+test process, rank-free: the ssm and hybrid guards raise before any
+work, where tp would cut a head or a gate block.  A world
 of 8 on a (2, 2, 2) ("pod", "data", "model") mesh all-reduces each
 rank's number over its batch group.  In the test process: the attention
 leaves each rank uses for its own heads only pass through ``to_model``
@@ -48,7 +53,8 @@ VOCAB, PADDED = 13, 16
 # the dimension each output of ``ops_rank`` splits over the ranks (None:
 # every rank holds all of it)
 SPLIT = {"mlp": None, "mlp_gx": None, "mlp_gw_col": 1, "mlp_gw_row": 0,
-         "gather": None, "embed": None, "embed_gtable": 0,
+         "gather": None, "norm": None, "norm_gy": 2, "norm_gw": 0,
+         "norm_gw_out": 0, "embed": None, "embed_gtable": 0,
          "xent": None, "xent_glogits": 2}
 
 
@@ -60,7 +66,8 @@ def _inputs() -> dict:
     B, S, d, F, H, hd = 2, 3, 8, 8, 4, 2
     return {"x": f32(B, S, d), "w_col": f32(d, F), "w_row": f32(F, d),
             "c": f32(B, S, d), "heads": f32(B, S, H, hd),
-            "c_heads": f32(B, S, H, hd), "table": f32(PADDED, d),
+            "c_heads": f32(B, S, H, hd), "y": f32(B, S, F),
+            "norm_w": f32(F) * 0.5, "table": f32(PADDED, d),
             "ids": rng.integers(0, VOCAB, (B, S)),
             "logits": f32(B, S, PADDED) * 3,
             "labels": rng.integers(0, VOCAB, (B, S)),
@@ -148,6 +155,29 @@ def test_gather_model_refuses_a_gradient(spawned, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_identity_backward_gives_the_norm_input_a_wrong_gradient(
+        spawned, one_rank, world):
+    """With ``from_model`` (identity backward) in ``sum_model``'s place, the
+    gated norm's forward is the same but each rank's gradient of the
+    shared mean square misses the other ranks' parts: the gradient of the
+    norm's input (in mamba2, what reaches ``w_x``, ``w_z``, ``w_dt`` and
+    the residual stream) leaves the one-rank run's on every rank.  The
+    norm weight's own gradient does not pass through the mean square's
+    backward, and stays right."""
+    for r, got in enumerate(spawned[world]):
+        for name, dim in (("norm_gy", 2), ("norm_gw", 0)):
+            want = one_rank[name]
+            k = want.shape[dim] // world
+            w = np.take(want, range(r * k, (r + 1) * k), axis=dim)
+            np.testing.assert_allclose(got[name], w, rtol=TOL, atol=TOL)
+            gap = np.abs(got[name.replace("norm_", "norm_identity_")] - w)
+            if name == "norm_gy":
+                assert gap.max() > 100 * TOL * np.abs(w).max(), (world, r)
+            else:
+                np.testing.assert_allclose(gap, 0, atol=TOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_padded_vocab_columns_get_zero_gradient(spawned, world):
     """The cross entropy's gradient on the columns ``>= vocab_size`` is
     exactly 0 on the rank that holds them, and they are there."""
@@ -193,7 +223,60 @@ def test_no_group_means_the_plain_functions():
         assert transformer.head_split(cfg, ctx) is None
     x = torch.randn(3, 4)
     assert tp.to_model(x, None) is x and tp.from_model(x, None) is x
+    assert tp.sum_model(x, None) is x
     assert tp.gather_model(x, 1, None) is x
+
+
+# (arch, config fields replaced, mesh): tp would cut a head of mamba2's
+# d_inner (2 heads of 64 over 4 ranks, d_inner 128 split), and a gate
+# block of recurrentgemma's width (8 blocks over 16 ranks, 64 split)
+GUARDS = {"ssm_heads": ("mamba2-370m", {"ssm_headdim": 64},
+                        {"data": 1, "model": 4}),
+          "lru_blocks": ("recurrentgemma-9b", {},
+                         {"data": 1, "model": 16})}
+
+
+@pytest.mark.parametrize("step", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("guard", sorted(GUARDS))
+def test_recurrent_tp_guards_raise_before_any_work(guard, step):
+    """Where tp's rules split mamba2's ``d_inner`` but not its heads, or
+    recurrentgemma's RG-LRU width over a ``model`` axis that does not
+    divide its gate blocks, each step builder raises
+    ``NotImplementedError`` naming the cut, rank-free (the context's axes
+    only: no process group exists), and so does the layer itself."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import (
+        build_decode_step, build_prefill_step, build_train_step,
+    )
+    from repro_torch.models import LM, griffin, ssm
+    arch, replace, axes = GUARDS[guard]
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **replace)
+    ctx = DistContext.create(cfg, axes, mode="tp")
+    if guard == "ssm_heads":
+        assert ctx.rules["ssm_inner"] == "model"
+        assert ctx.rules["ssm_heads"] is None
+    else:
+        assert ctx.rules["lru"] == "model"
+    lm = LM(cfg, max_seq=32, device="cpu")
+    build = {"train": lambda: build_train_step(
+        lm, TrainConfig(), ctx, ShapeConfig("t", "train", 32, 8)),
+        "prefill": lambda: build_prefill_step(
+            lm, ctx, ShapeConfig("p", "prefill", 32, 8)),
+        "decode": lambda: build_decode_step(
+            lm, ctx, ShapeConfig("d", "decode", 32, 8))}[step]
+    match = "cuts through a head" if guard == "ssm_heads" else \
+        "cuts through a block"
+    with pytest.raises(NotImplementedError, match=match):
+        build()
+    x = torch.zeros(1, 2, cfg.d_model)
+    with pytest.raises(NotImplementedError, match=match):
+        if guard == "ssm_heads":
+            ssm.ssm_forward({}, x, cfg, ctx)
+        else:
+            griffin.recurrent_forward({}, x, cfg, ctx=ctx)
 
 
 @pytest.mark.parametrize("kv_split,want", [
