@@ -76,6 +76,7 @@ SIGNATURES = {
         "rglru_scan_f32": (_P, _P, _P, _P, _N, _N, _N, _P),
         "rglru_scan_bf16": (_P, _P, _P, _P, _N, _N, _N, _P),
         "rglru_scan_bwd_f32": (_P, _P, _P, _P, _P, _P, _N, _N, _N, _P),
+        "rglru_scan_config": (_N, _N, _N, _N, _P),
     },
 }
 

@@ -4,9 +4,13 @@ that launch them.
 It checks device, dtypes, shapes and contiguity and raises on anything the
 kernel does not take, allocates the outputs, launches on PyTorch's current
 stream and raises if the launch returned an error.  ``LAUNCHES`` counts
-launches.
+launches.  The entry points are looked up once, and a launch on the current
+device enters no device context: the scans are short enough that the
+host's time before the launch shows in their wall time.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -14,7 +18,21 @@ from repro_torch.kernels import _build
 
 LAUNCHES = {"rglru_scan": 0, "rglru_scan_bwd": 0}
 
-_ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_ENTRY = {torch.float32: "rglru_scan_f32", torch.bfloat16: "rglru_scan_bf16"}
+_FNS: dict = {}
+
+
+def _launch(name: str, device: torch.device, *args) -> int:
+    """Call the entry point ``name`` with ``args`` and PyTorch's current
+    stream on ``device``; returns its error code."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = getattr(_build.load("rg_lru"), name)
+    if device.index == torch.cuda.current_device():
+        # the current stream's raw cudaStream_t, without a torch.cuda.Stream
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, _build.stream_handle(device))
 
 
 def reset_launches() -> None:
@@ -43,12 +61,10 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor):
     last = torch.empty((B, W), dtype=a.dtype, device=a.device)
     if a.numel() == 0:
         return h, last
-    lib = _build.load("rg_lru")
-    fn = getattr(lib, f"rglru_scan_{_ENTRY[a.dtype]}")
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), last.data_ptr(),
-                 B, S, W, _build.stream_handle(a.device))
-    _build.check(err, f"rglru_scan (B={B}, S={S}, W={W})")
+    err = _launch(_ENTRY[a.dtype], a.device, a.data_ptr(), b.data_ptr(),
+                  h.data_ptr(), last.data_ptr(), B, S, W)
+    if err:
+        _build.check(err, f"rglru_scan (B={B}, S={S}, W={W})")
     LAUNCHES["rglru_scan"] += 1
     return h, last
 
@@ -74,12 +90,27 @@ def rglru_scan_bwd_kernel(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     da, db = torch.empty_like(a), torch.empty_like(a)
     if a.numel() == 0:
         return da, db
-    lib = _build.load("rg_lru")
-    with torch.cuda.device(a.device):
-        err = lib.rglru_scan_bwd_f32(
-            a.data_ptr(), h.data_ptr(), dh.data_ptr(),
-            None if dlast is None else dlast.data_ptr(), da.data_ptr(),
-            db.data_ptr(), B, S, W, _build.stream_handle(a.device))
-    _build.check(err, f"rglru_scan_bwd (B={B}, S={S}, W={W})")
+    err = _launch("rglru_scan_bwd_f32", a.device, a.data_ptr(), h.data_ptr(),
+                  dh.data_ptr(), None if dlast is None else dlast.data_ptr(),
+                  da.data_ptr(), db.data_ptr(), B, S, W)
+    if err:
+        _build.check(err, f"rglru_scan_bwd (B={B}, S={S}, W={W})")
     LAUNCHES["rglru_scan_bwd"] += 1
     return da, db
+
+
+def launch_config(B: int, S: int, W: int, dtype=torch.float32,
+                  backward: bool = False) -> dict:
+    """The launch the forward (f32 or bf16) or backward kernel makes on the
+    current device for (B,S,W) inputs: ``{"grid": [x, y], "threads",
+    "smem_bytes" (dynamic shared memory a block), "band" (channels a
+    block), "copy_bytes" (16: cp.async of 16 bytes, for row pitches that
+    are a multiple of 16 bytes; else one element: 4, an f32 by cp.async,
+    or 2, a bf16 by a synchronous load and store)}``."""
+    kind = 2 if backward else {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    out = (ctypes.c_int * 6)()
+    err = _build.load("rg_lru").rglru_scan_config(B, S, W, kind,
+                                                  ctypes.addressof(out))
+    _build.check(err, f"rglru_scan config (B={B}, S={S}, W={W})")
+    return {"grid": [out[0], out[1]], "threads": out[2],
+            "smem_bytes": out[3], "band": out[4], "copy_bytes": out[5]}

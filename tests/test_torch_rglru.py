@@ -5,8 +5,11 @@ the block sizes of tests/test_kernels.py), the JAX oracle ``rglru_ref``
 (an associative scan) and the port's ``rglru_scan``, which on a CPU tensor
 is its plain version (a loop over S with an f32 carry).  Tolerances are the
 reference's own: 1e-4 in f32 (the two sum in another order), 3e-2 in bf16
-(h is rounded to bf16).  The CUDA kernel itself runs only on the card
-(``chip_smoke.py`` holds it against the plain version there).
+(h is rounded to bf16).  The CUDA kernels themselves run only on the card,
+where ``chip_smoke.py`` holds them bit for bit against the plain versions;
+here the plain forward and backward are held bit for bit against the
+recurrence written out as a numpy step loop in float32, which closes the
+chain kernel = plain version = f32 step loop.
 """
 import numpy as np
 import pytest
@@ -19,7 +22,9 @@ from repro.kernels.rg_lru.ops import rglru_scan as ref_scan  # noqa: E402
 from repro.kernels.rg_lru.ref import rglru_ref  # noqa: E402
 from repro_torch.kernels.rg_lru.kernel import rglru_scan_kernel  # noqa: E402
 from repro_torch.kernels.rg_lru.ops import rglru_scan  # noqa: E402
-from repro_torch.kernels.rg_lru.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rg_lru.ref import (  # noqa: E402
+    rglru_scan_bwd_ref, rglru_scan_ref,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
@@ -125,3 +130,81 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(
     b = torch.zeros(b_shape, dtype=b_dtype)
     with pytest.raises(exc, match=match):
         rglru_scan_kernel(a, b)
+
+
+# -- the plain versions against a numpy step loop, bit for bit ----------
+# The CUDA kernels are held bit for bit against the plain versions on the
+# card (chip_smoke.py); here the plain versions are held bit for bit against
+# the recurrence written out in np.float32, a product and then a sum, each
+# rounded on its own (no fused multiply-add).  The shapes are the card
+# checks' edges: S of 1, below one 32-step tile and not a multiple of it; W
+# not a multiple of the 16- or 32-channel band, rows whose pitch is not a
+# multiple of 16 bytes (W 130 in f32, 100 and 33 in bf16); bands of 32 with
+# a ragged tail (W 8500, 8451); the model's widths, 4096 and a tensor-
+# parallel rank's 2048, at a short S.
+STEP_SHAPES = [(3, 1, 33), (2, 17, 100), (2, 77, 100), (2, 77, 130),
+               (2, 77, 33), (1, 100, 8500), (1, 45, 8451), (2, 40, 4096),
+               (4, 33, 2048)]
+
+
+def _bits(x) -> np.ndarray:
+    """The bit patterns of a float32 tensor or array."""
+    x = x.numpy() if isinstance(x, torch.Tensor) else x
+    return np.ascontiguousarray(x, np.float32).view(np.uint32)
+
+
+def _np_scan(a, b):
+    """h_t = a_t * h_{t-1} + b_t from a zero state, in np.float32."""
+    h = np.empty_like(a)
+    carry = np.zeros(a[:, 0].shape, np.float32)
+    for t in range(a.shape[1]):
+        carry = a[:, t] * carry + b[:, t]
+        h[:, t] = carry
+    return h
+
+
+def _np_scan_bwd(a, h, dh, dlast):
+    """g_{S-1} = dh_{S-1} (+ dlast), g_t = dh_t + a_{t+1} * g_{t+1};
+    db_t = g_t, da_t = g_t * h_{t-1} (h_{-1} = 0), in np.float32."""
+    S = a.shape[1]
+    da, db = np.empty_like(a), np.empty_like(a)
+    g = dh[:, S - 1].copy() if dlast is None else dh[:, S - 1] + dlast
+    for t in range(S - 1, -1, -1):
+        if t < S - 1:
+            g = dh[:, t] + a[:, t + 1] * g
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t else np.float32(0))
+    return da, db
+
+
+@pytest.mark.parametrize("B,S,W", STEP_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_forward_is_the_f32_step_loop_bit_for_bit(B, S, W, dtype):
+    """In bf16 the loop runs on the bf16 inputs widened to f32 and its h
+    is rounded to bf16 once, at the end, as the kernel stores it."""
+    tdt = DTYPES[dtype][1]
+    a, b = (torch.from_numpy(x).to(tdt) for x in _inputs(B, S, W, seed=S + W))
+    h, last = rglru_scan_ref(a, b)
+    want = _np_scan(a.float().numpy(), b.float().numpy())
+    if tdt == torch.float32:
+        assert np.array_equal(_bits(h), _bits(want))
+    else:
+        assert torch.equal(h, torch.from_numpy(want).to(tdt))
+    assert torch.equal(last, h[:, -1])
+
+
+@pytest.mark.parametrize("B,S,W", STEP_SHAPES)
+@pytest.mark.parametrize("with_dlast", [False, True])
+def test_plain_backward_is_the_f32_step_loop_bit_for_bit(B, S, W, with_dlast):
+    rng = np.random.default_rng(S * W + with_dlast)
+    a, b = _inputs(B, S, W, seed=S + W)
+    h = _np_scan(a, b)
+    dh = rng.standard_normal((B, S, W)).astype(np.float32)
+    dlast = (rng.standard_normal((B, W)).astype(np.float32) if with_dlast
+             else None)
+    da, db = rglru_scan_bwd_ref(
+        *(torch.from_numpy(x) for x in (a, h, dh)),
+        None if dlast is None else torch.from_numpy(dlast))
+    want_da, want_db = _np_scan_bwd(a, h, dh, dlast)
+    assert np.array_equal(_bits(db), _bits(want_db))
+    assert np.array_equal(_bits(da), _bits(want_da))
