@@ -29,7 +29,8 @@ Phases, each printing one JSON line:
 4. lm_kernels: flash_attention, ssd_scan and rglru_scan against their plain
             versions (TF32 off for the f32 products), at the serve path's
             shapes (flash at yi-6b's hd 128, stablelm-12b's hd 160,
-            recurrentgemma's hd 256, qwen3-moe's GQA 64:4, whisper-tiny's
+            recurrentgemma's hd 256, qwen3-moe's GQA 64:4, a dist_tp
+            rank's qwen2-moe (8 of 16 heads), whisper-tiny's
             encoder, unmasked at S 1500, and decoder prompt, hd 64), the
             CPU tests' shapes, ragged ones and the tensor-core routes' edges
             (S under one tile, full attention, H/KV 2 and 16; one chunk,
@@ -139,7 +140,9 @@ Phases, each printing one JSON line:
 9. gateway: bench_gateway's 10,000-session attach storm through one
             ``GatewayService(device="cuda")`` (peak concurrency 10,000, no
             errors), the server's wire storm (``serve_gateway(0,
-            stress=2000)``) and notebook fleet (``serve_notebook_fleet(8)``),
+            stress=2000)``, in a process of this script started before
+            the socket phase, its host work beside theirs) and notebook
+            fleet (``serve_notebook_fleet(8)``),
             and a 300-session storm on the card and on the CPU with every
             sim-derived field of the report equal;
 10. checkpoint: ``repro_torch.checkpoint`` on the card: the full
@@ -241,8 +244,16 @@ Phases, each printing one JSON line:
             prefill at 16 of 32 heads), full mamba2-370m (batch 8, prompt
             2000; the SSD scan 48 at 16 of 32 heads) and full
             recurrentgemma-9b (batch 4, prompt 2048; the RG-LRU scan 26
-            at 2048 of 4096, flash 12 at 8 of 16 q heads) with sp_decode
-            on, 8 steps each; full-width training
+            at 2048 of 4096, flash 12 at 8 of 16 q heads) and full
+            qwen2-moe-a2.7b (batch 4, prompt 2048; EP, 30 of the 60
+            experts a rank, the global routing; flash 24 at 8 of 16 q
+            heads over 8 of 16 kv heads; where a rank's top-K differs from
+            ``LM``'s it takes ``LM``'s only at a near tie in its own
+            router logits, within 36 bf16 spacings, on at most 0.227 of
+            the routings, and the flips are counted by gap) with
+            sp_decode on, 8 steps each; each rank's parameter bytes
+            ``model_memory``'s tp count, the ranks making their seeded
+            weights in turn; full-width training
             against ``build_train_step`` at world size 1 (loss within
             1e-3, grad norm within 1e-2, each leaf's gradient norm within
             2e-2): minicpm-2b (the most of 40, 20 and 10 layers at which
@@ -1002,6 +1013,11 @@ def phase_lm_kernels() -> list[dict]:
               wh.resolved_head_dim)
     q3_fa = (MOE_BATCH, q3.num_heads, q3.num_kv_heads, MOE_PROMPT,
              q3.resolved_head_dim)
+    # a dist_tp rank's qwen2-moe prefill: 8 of 16 q heads over 8 of 16 kv
+    q2 = get_config("qwen2-moe-a2.7b")
+    moe_tp_fa = (MOE_BATCH, q2.num_heads // TP_WORLD,
+                 q2.num_kv_heads // TP_WORLD, MOE_PROMPT,
+                 q2.resolved_head_dim)
     fa_cases = [(main_fa, bf16, True), (main_fa, f32, True),
                 ((1, 4, 4, 128, 64), f32, True), ((2, 8, 2, 256, 64), f32, True),
                 ((1, 8, 1, 128, 128), f32, True), ((1, 6, 6, 192, 32), f32, True),
@@ -1033,7 +1049,8 @@ def phase_lm_kernels() -> list[dict]:
                 # and qwen3-moe's GQA 64:4 at their serve shapes
                 (wh_enc, bf16, False), (wh_enc, f32, False),
                 (wh_dec, bf16, True), (q3_fa, bf16, True),
-                (rg_tp_fa, bf16, True), (rg_tp_fa, f32, True)]
+                (rg_tp_fa, bf16, True), (rg_tp_fa, f32, True),
+                (moe_tp_fa, bf16, True)]
     checked = []
     for (B, H, KV, S, hd), dtype, causal in fa_cases:
         q = randn((B, H, S, hd), dtype)
@@ -1119,6 +1136,8 @@ def phase_lm_kernels() -> list[dict]:
              "whisper_encoder": time_flash(*wh_enc, causal=False),
              "whisper_decoder": time_flash(*wh_dec),
              "qwen3_gqa": time_flash(*q3_fa),
+             # a dist_tp rank's qwen2-moe prefill: 8 of 16 q and kv heads
+             "moe_tp2": time_flash(*moe_tp_fa),
              "checked_shapes": checked}]
 
     # -- SSD scan --------------------------------------------------------
@@ -2380,6 +2399,9 @@ COLD_START = 5.0
 THINK_MEAN = 120.0
 GPU_CAPACITY = 256
 WIRE_STORM = 2000
+# seconds the wire storm's process may run, from its start before the
+# socket phase to the end of the gateway phase's wait for it
+WIRE_STORM_TIMEOUT = 600
 NOTEBOOK_FLEET = 8
 GATEWAY_WALL_FIELDS = ("decision_ms_p50", "decision_ms_p99")
 
@@ -2688,18 +2710,76 @@ def gateway_sim(rep) -> dict:
     return out
 
 
-def phase_gateway() -> dict:
+class WireStorm:
+    """The gateway phase's wire storm (``serve_gateway(0,
+    stress=WIRE_STORM)``: ATTACH frames through a WireFrontend, each
+    session 200,000 float64 elements, its chunks hashed on the card and
+    compressed on the host) in a process of this script (``--wire-storm
+    DIR``), started before the socket and fleet phases so that its host
+    work runs beside theirs; ``result`` waits for it (at most
+    WIRE_STORM_TIMEOUT seconds from its start) and ``stop`` ends it if it
+    still runs.  The process writes ``DIR/wire.json``: the server's
+    result, its wall seconds and the state-plane kernels' launches and
+    host syncs of the storm alone."""
+
+    def __init__(self, out: Path):
+        self.out = out
+        self.log = open(out / "wire.log", "w")
+        self.started = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--wire-storm",
+             str(out)], stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT)
+
+    def result(self) -> dict:
+        left = self.started + WIRE_STORM_TIMEOUT - time.monotonic()
+        try:
+            code = self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            code = None
+        self.stop()
+        if code != 0:
+            raise AssertionError(
+                f"wire storm: exit {code} after "
+                f"{time.monotonic() - self.started:.1f} s:\n"
+                + (self.out / "wire.log").read_text()[-3000:])
+        return json.loads((self.out / "wire.json").read_text())
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.log.close()
+
+
+def wire_storm_main(out: Path) -> int:
+    """The process ``WireStorm`` starts."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.hash_delta import ops as hops
+    from repro_torch.launch.serve import serve_gateway
+
+    reset_state_kernels()
+    t0 = time.perf_counter()
+    wire = serve_gateway(0, stress=WIRE_STORM, device="cuda")
+    torch.cuda.synchronize()
+    (out / "wire.json").write_text(json.dumps({
+        "wire": wire, "wall_seconds": time.perf_counter() - t0,
+        "launches": state_kernel_counts(), "host_syncs": hops.HOST_SYNCS},
+        default=str))
+    return 0
+
+
+def phase_gateway(wire_storm: WireStorm) -> dict:
     """The gateway on the card: bench_gateway's 10,000-session attach storm
     through one ``GatewayService(device="cuda")``, the server's wire storm
-    (``serve_gateway(0, stress=2000)``: ATTACH frames through a
-    WireFrontend, each session 200,000 float64 elements) and its notebook
-    fleet (``serve_notebook_fleet(8)``), then the 300-session storm on the
-    card against the CPU.  Returns the state-plane kernels' launches on
-    the gateway path."""
+    (``wire_storm``'s result) and its notebook fleet
+    (``serve_notebook_fleet(8)``), then the 300-session storm on the card
+    against the CPU.  Returns the state-plane kernels' launches on the
+    gateway path, the wire storm's process's included."""
     import torch
 
     from repro_torch.kernels.hash_delta import ops as hops
-    from repro_torch.launch.serve import serve_gateway, serve_notebook_fleet
+    from repro_torch.launch.serve import serve_notebook_fleet
 
     t_phase = time.perf_counter()
     reset_state_kernels()
@@ -2716,15 +2796,16 @@ def phase_gateway() -> dict:
         raise AssertionError(f"the gateway's device is {gw.device}")
 
     t0 = time.perf_counter()
-    wire = serve_gateway(0, stress=WIRE_STORM, device="cuda")
-    torch.cuda.synchronize()
-    wire_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
     fleet = serve_notebook_fleet(NOTEBOOK_FLEET, device="cuda")
     torch.cuda.synchronize()
     fleet_wall = time.perf_counter() - t0
-    launches = state_kernel_counts()
-    syncs = hops.HOST_SYNCS
+    t0 = time.perf_counter()
+    storm_out = wire_storm.result()
+    wire_waited = time.perf_counter() - t0
+    wire, wire_wall = storm_out["wire"], storm_out["wall_seconds"]
+    launches = {k: n + storm_out["launches"].get(k, 0)
+                for k, n in state_kernel_counts().items()}
+    syncs = hops.HOST_SYNCS + storm_out["host_syncs"]
     if (wire["completed"], wire["errors"], wire["wire_sessions"]) != \
             (WIRE_STORM, 0, WIRE_STORM) or wire["device"] != "cuda":
         raise AssertionError(f"wire storm: {wire}")
@@ -2756,7 +2837,10 @@ def phase_gateway() -> dict:
           "wire": {**{k: wire[k] for k in (
               "sessions", "completed", "errors", "peak_concurrent",
               "makespan", "attach_wait_p99", "queue_wait_p99",
-              "decision_ms_p99", "pool")}, "wall_seconds": wire_wall},
+              "decision_ms_p99", "pool")}, "wall_seconds": wire_wall,
+              "run_beside": ["socket", "fleet", "gateway"],
+              "waited_seconds": wire_waited,
+              "launches": storm_out["launches"]},
           "notebook_fleet": {**{k: fleet[k] for k in (
               "sessions", "makespan", "queue_events", "total_queue_wait")},
               "wall_seconds": fleet_wall},
@@ -2870,9 +2954,20 @@ def phase_checkpoint(tmp: Path) -> dict:
         raise AssertionError(f"delta save: {info2.n_leaves_written} leaves, "
                              f"{info2.nbytes} B (bound {delta_bound} B)")
     after_delta = state_kernel_counts()
-    # the wrappers' counts decide; the trace must agree wherever the
-    # profiler records device activity at all (late in a full run, after
-    # the gateway phase, it has recorded none: PERF.md section 7)
+    # the wrappers' counts decide, and the trace must agree wherever the
+    # profiler records device activity at all.  Late in a full run it has
+    # recorded none, or once only the digests' copy to the host (PERF.md
+    # section 7): where it records no kernel, the same save of step 2 is
+    # traced once more (it digests every leaf again and writes nothing)
+    retraced = traced_hash <= 0 and all(
+        n.startswith(("Memcpy", "Memset")) for n in traced)
+    if retraced:
+        again = []
+        traced_hash, traced = hash_launches_in(
+            lambda: again.append(ck.save(2, trees)))
+        torch.cuda.synchronize()
+        if again[0].n_leaves_written != 0:
+            raise AssertionError(f"the second save of step 2: {again[0]}")
     if hash_count(after_delta) <= hash_count(after_first) or \
             (traced and traced_hash <= 0):
         raise AssertionError(
@@ -2909,6 +3004,7 @@ def phase_checkpoint(tmp: Path) -> dict:
            - hash_count(after_first),
            "delta_traced_hash_launches": traced_hash,
            "delta_traced_device_activities": len(traced),
+           "delta_retraced": retraced,
            "save_gb_per_s": param_bytes / save1_s / 1e9}
 
     # -- 2: whisper-tiny through the async writer, beside a prefill ------
@@ -4433,11 +4529,36 @@ TP_COLLECTIVE_TIMEOUT = 120        # seconds a gloo collective may wait
 # on two ranks over gloo on an H100's host (the host sets it), GEN of
 # them 9-16 s a leg of the smoke's time limit
 TP_REC_GEN = 8
+# qwen2-moe-a2.7b's 60 experts split over the 2 ranks (EP, the global
+# routing), with sp_decode on; its train leg waits for the smoke's time
+# (ROADMAP: the gateway's host time first)
 TP_SERVE_LEGS = (("yi-6b", YI_BATCH, YI_PROMPT, GEN, (False, True)),
                  ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT, TP_REC_GEN,
                   (True,)),
                  ("recurrentgemma-9b", RG_BATCH, RG_PROMPT, TP_REC_GEN,
+                  (True,)),
+                 ("qwen2-moe-a2.7b", MOE_BATCH, MOE_PROMPT, TP_REC_GEN,
                   (True,)))
+# a moe rank's top-K may take LM's choice only where its own router logits
+# of the two choices lie at most this many bf16 spacings apart: a near tie
+# at bf16.  The tp residual stream differs from LM's in the last bits
+# (row-split partial sums round to bf16 before the all-reduce adds them),
+# and a flipped expert moves a token's output far past any tolerance on
+# the logits.  LM's own bf16 floor, qwen2-moe-a2.7b at this leg's batch
+# and prompt on an H100 (tools/moe_route_floor.py, PERF.md section 6): LM's
+# routes lie up to 18 spacings from those of an f32 arm of the same
+# weights that routes freely, and up to 22.4 in the logits of an f32 arm
+# held to LM's routes as the ranks are; tp against LM holds two bf16
+# runs, so the limit is twice the smaller reading.  The CPU tests'
+# relative 2**-6 (tests/test_torch_model.py ROUTE_TIE_RTOL: reduced
+# configs, 3 layers, logits below 1) is one spacing at logits in [2, 4),
+# where full width puts the top logits
+ROUTE_TIE_ULPS = 36
+# the share of a moe leg's token routings a rank may take from LM's: 1.25
+# times LM's own bf16 floor, 35,904 of the leg's 197,376 routings
+# (0.1819) against an f32 arm held to LM's routes (35,905 against one
+# routing freely; the same run of tools/moe_route_floor.py)
+ROUTE_FLIP_SHARE = 0.227
 # a family's serving limit where its bf16 floor passes DIST_SERVE_TOL:
 # mamba2-370m's LM in bf16 lay 0.141 from an f32 arm of the same
 # weights, relative to 1 + |logit| (the floor, which the phase measures
@@ -4610,6 +4731,101 @@ def collective_totals(by_op: dict) -> tuple[int, float]:
             sum(v["seconds"] for v in by_op.values()))
 
 
+class RecordRoutes:
+    """While installed, each moe layer's top-K experts (``models/moe.py``
+    ``_choose``, in call order) appended to ``routes`` as uint8 on the
+    host: ``LM``'s choices for the tp ranks to follow at near ties."""
+
+    def __init__(self, routes: list):
+        self.routes = routes
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+        self.real = real = moe._choose
+
+        def recording(logits, cfg):
+            probs, gate, idx = real(logits, cfg)
+            self.routes.append(idx.to(torch.uint8).cpu())
+            return probs, gate, idx
+        moe._choose = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._choose = self.real
+
+
+class FollowRoutes:
+    """While installed, each moe layer's top-K is ``routes``' next entry
+    (``RecordRoutes``' from ``LM``'s run of the same tokens) where the
+    rank's own top-K differs from it, and only where that is a near tie in
+    the rank's own router logits: at each of the K places the rank's
+    logits of its expert and of LM's at most ``limit`` (ROUTE_TIE_ULPS)
+    bf16 spacings (at the larger magnitude of the two) apart; a wider gap
+    raises.  ``flips`` counts the tokens taken over by their gap in
+    spacings (``ulps``), keeps each call's largest gap (``max_by_call``)
+    and the first few (``sample``); ``routings`` counts every token
+    routed; on leaving, every entry of ``routes`` must have been read."""
+
+    def __init__(self, routes: list, limit: float = ROUTE_TIE_ULPS):
+        self.routes, self.calls, self.limit = routes, 0, limit
+        self.routings = 0
+        self.flips = {"ulps": {}, "max_by_call": {}, "sample": []}
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+        self.real = real = moe._choose
+
+        def following(logits, cfg):
+            call = self.calls
+            self.calls += 1
+            probs, gate, got = real(logits, cfg)
+            self.routings += got.shape[0]
+            want = self.routes[call].to(logits.device).long()
+            rows = (got != want).any(dim=1)
+            if not bool(rows.any()):
+                return probs, gate, got
+            lg, lw = logits.gather(1, got)[rows], logits.gather(1, want)[rows]
+            exp = torch.frexp(torch.maximum(lg.abs(), lw.abs()))[1]
+            gaps = ((lg - lw).abs() / torch.ldexp(torch.ones_like(lg),
+                                                  exp - 8)).amax(dim=1)
+            worst = float(gaps.max())
+            if worst > self.limit:
+                t = int(torch.nonzero(rows).ravel()[gaps.argmax()])
+                raise AssertionError(
+                    f"dist_tp: moe call {call} token {t}: the rank's "
+                    f"experts {got[t].tolist()} at logits "
+                    f"{logits[t, got[t]].tolist()}, LM's "
+                    f"{want[t].tolist()} at {logits[t, want[t]].tolist()}: "
+                    f"{worst} bf16 spacings apart, beyond a near tie "
+                    f"({self.limit})")
+            for u, n in zip(*(x.tolist() for x in torch.unique(
+                    gaps, return_counts=True))):
+                self.flips["ulps"][u] = self.flips["ulps"].get(u, 0) + n
+            self.flips["max_by_call"][call] = worst
+            if len(self.flips["sample"]) < 8:
+                self.flips["sample"] += [
+                    {"call": call, "token": t} for t in
+                    torch.nonzero(rows).ravel()[:8].tolist()]
+            gate = torch.gather(probs, 1, want)
+            if cfg.norm_topk_prob:
+                gate = gate / gate.sum(dim=-1, keepdim=True)
+            return probs, gate, want
+        moe._choose = following
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        from repro_torch.models import moe
+        moe._choose = self.real
+        if exc_type is None and self.calls != len(self.routes):
+            raise AssertionError(f"dist_tp: {self.calls} moe calls on the "
+                                 f"rank, {len(self.routes)} in LM's run")
+
+
 def tp_mesh_memory(cfg, kind: str, seq: int, batch: int, *, tc=None,
                    max_seq: int | None = None) -> dict:
     """``model_memory`` of one cell in tp on the (1, TP_WORLD) mesh."""
@@ -4628,14 +4844,20 @@ def tp_mesh_memory(cfg, kind: str, seq: int, batch: int, *, tc=None,
 def tp_rank_serve(rank: int, tmp: Path, arch: str, batch: int, prompt: int,
                   gen: int, sps: tuple) -> dict:
     """A serve leg on this rank: full ``arch`` in tp on the (1, 2) gloo
-    mesh, its weights made from SEED as the parent's ``LM`` made them,
-    then, with each ``sp_decode`` setting of ``sps``, a prefill and
-    ``gen`` decode steps driven by ``LM``'s greedy ids.  Rank 0 saves each step's
-    full logits; every rank returns its times, launches, peak memory,
-    collectives and ``gather_stats``; the weights are freed."""
+    mesh, its weights made from SEED as the parent's ``LM`` made them (the
+    ranks in turn, each freeing its full weights once it holds its blocks,
+    so that two full copies never share the card), then, with each
+    ``sp_decode`` setting of ``sps``, a prefill and ``gen`` decode steps
+    driven by ``LM``'s greedy ids; a moe config's layers follow ``LM``'s
+    routes at near ties (``FollowRoutes``).  Rank 0 saves each step's full
+    logits; every rank returns its times, launches, peak memory,
+    collectives, route flips and ``gather_stats``, and the leg's seconds;
+    the weights are freed."""
+    import contextlib
     import gc
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.reducer import tree_flatten_with_path
@@ -4645,6 +4867,7 @@ def tp_rank_serve(rank: int, tmp: Path, arch: str, batch: int, prompt: int,
     from repro_torch.launch.mesh import make_dev_mesh
     from repro_torch.models import LM
 
+    t_leg = time.perf_counter()
     cfg = serve_config(arch)
     total = prompt + gen
     inputs = torch.load(tmp / f"serve-inputs-{arch}.pt")
@@ -4653,48 +4876,59 @@ def tp_rank_serve(rank: int, tmp: Path, arch: str, batch: int, prompt: int,
     tokens, drive = inputs["tokens"].cuda(), inputs["ids"].cuda()
     mesh = make_dev_mesh(1, TP_WORLD, device="cuda", backend="gloo")
     lm = LM(cfg, max_seq=total, device="cuda")
-    weights = lm.init(SEED, torch.bfloat16)
-    lm.params = None
     pshape = ShapeConfig("smoke", "prefill", prompt, batch)
     dshape = ShapeConfig("smoke", "decode", total, batch)
-    params, legs = None, {}
+    params = None
+    for turn in range(TP_WORLD):
+        if turn == rank:
+            ctx = DistContext.create(cfg, mesh, mode="tp", sp_decode=sps[0])
+            _, (p_sh, _, _, _) = build_prefill_step(lm, ctx, pshape,
+                                                    cache_len=total)
+            params = distribute_tree(lm.init(SEED, torch.bfloat16), ctx,
+                                     p_sh)
+            lm.params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    t_weights = time.perf_counter() - t_leg
+    legs = {}
     with CollectiveMeter() as meter:
         for sp in sps:
             ctx = DistContext.create(cfg, mesh, mode="tp", sp_decode=sp)
-            pf, (p_sh, _, _, _) = build_prefill_step(lm, ctx, pshape,
-                                                     cache_len=total)
+            pf, _ = build_prefill_step(lm, ctx, pshape, cache_len=total)
             df, _ = build_decode_step(lm, ctx, dshape)
-            if params is None:
-                params = distribute_tree(weights, ctx, p_sh)
-                del weights
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             meter.take()
-            before = lm_launches()
-            t0 = time.perf_counter()
-            logits, cache = pf(params, {"tokens": tokens})
-            torch.cuda.synchronize()
-            t_prefill = time.perf_counter() - t0
-            coll_prefill = meter.take()
-            mid = lm_launches()
-            out = [full_logits(logits, ctx)]
-            t_decode, coll_decode = 0.0, {}
-            for s in range(gen):
-                meter.take()        # the comparison's gather, not the step's
+            follow = (FollowRoutes(inputs["routes"])
+                      if "routes" in inputs else contextlib.nullcontext())
+            with follow:
+                before = lm_launches()
                 t0 = time.perf_counter()
-                logits, cache = df(params, cache, {"token": drive[:, s:s + 1]})
+                logits, cache = pf(params, {"tokens": tokens})
                 torch.cuda.synchronize()
-                t_decode += time.perf_counter() - t0
-                for op, rec in meter.take().items():
-                    acc = coll_decode.setdefault(
-                        op, {"calls": 0, "bytes": 0, "seconds": 0.0})
-                    for k in acc:
-                        acc[k] += rec[k]
-                out.append(full_logits(logits, ctx))
-            after = lm_launches()
+                t_prefill = time.perf_counter() - t0
+                coll_prefill = meter.take()
+                mid = lm_launches()
+                out = [full_logits(logits, ctx)]
+                t_decode, coll_decode = 0.0, {}
+                for s in range(gen):
+                    meter.take()    # the comparison's gather, not the step's
+                    t0 = time.perf_counter()
+                    logits, cache = df(params, cache,
+                                       {"token": drive[:, s:s + 1]})
+                    torch.cuda.synchronize()
+                    t_decode += time.perf_counter() - t0
+                    for op, rec in meter.take().items():
+                        acc = coll_decode.setdefault(
+                            op, {"calls": 0, "bytes": 0, "seconds": 0.0})
+                        for k in acc:
+                            acc[k] += rec[k]
+                    out.append(full_logits(logits, ctx))
+                after = lm_launches()
             peak = torch.cuda.max_memory_allocated()
             if rank == 0:
                 torch.save(out, tmp / f"serve-logits-{arch}-{int(sp)}.pt")
@@ -4713,14 +4947,24 @@ def tp_rank_serve(rank: int, tmp: Path, arch: str, batch: int, prompt: int,
                 "collectives": {"prefill": coll_prefill,
                                 "decode_all_steps": coll_decode},
                 "gather_stats": {"prefill": dict(pf.gather_stats),
-                                 "decode": dict(df.gather_stats)}}
+                                 "decode": dict(df.gather_stats)},
+                **({"route_flips": sum(follow.flips["ulps"].values()),
+                    "routings": follow.routings,
+                    "route_flip_ulps": {str(u): n for u, n in sorted(
+                        follow.flips["ulps"].items())},
+                    "route_flip_max_ulps_by_call":
+                        follow.flips["max_by_call"],
+                    "route_flips_sample": follow.flips["sample"][:8]}
+                   if "routes" in inputs else {})}
             del cache, logits, pf, df
     held = sum(t.to_local().numel() * t.element_size()
                for _, t in tree_flatten_with_path(params))
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"legs": legs, "local_param_bytes": held}
+    return {"legs": legs, "local_param_bytes": held,
+            "weights_seconds": t_weights,
+            "seconds": time.perf_counter() - t_leg}
 
 
 def full_logits(logits, ctx):
@@ -5002,16 +5246,38 @@ def tp_serve_report(tmp: Path, arch: str, prompt: int, gen: int,
                     legs_by_rank: list, want: list, cfg,
                     add_launches) -> dict:
     """Checks the ranks' serve legs of ``arch`` (launches, no gathered
-    bytes, logits against ``want``, ``LM``'s, within the family's
-    TP_SERVE_TOL or DIST_SERVE_TOL) and adds their prefill launches ->
-    the serve line's legs."""
+    bytes, each rank's parameter bytes ``model_memory``'s tp count, logits
+    against ``want``, ``LM``'s, within the family's TP_SERVE_TOL or
+    DIST_SERVE_TOL, the same route flips on every rank of a moe config)
+    and adds their prefill launches -> the serve line's legs."""
     import torch
 
     want_prefill = expected_launches(cfg, prompt)
     none = {k: 0 for k in want_prefill}
     out = {}
+    for r, rec in enumerate(legs_by_rank):
+        counted = next(iter(rec["legs"].values()))["model_memory"][
+            "prefill"]["params"]
+        if rec["local_param_bytes"] != counted:
+            raise AssertionError(
+                f"dist_tp serve {arch} rank {r}: holds "
+                f"{rec['local_param_bytes']} parameter bytes, model_memory "
+                f"counts {counted} for tp on (1, {TP_WORLD})")
     for name in legs_by_rank[0]["legs"]:
         legs = [rec["legs"][name] for rec in legs_by_rank]
+        if any(leg.get("route_flips") != legs[0].get("route_flips")
+               for leg in legs):
+            raise AssertionError(f"dist_tp serve {arch} {name}: the ranks "
+                                 f"took different route flips: "
+                                 f"{[leg.get('route_flips') for leg in legs]}")
+        if "route_flips" in legs[0]:
+            share = legs[0]["route_flips"] / legs[0]["routings"]
+            legs[0]["route_flip_share"] = share
+            if share > ROUTE_FLIP_SHARE:
+                raise AssertionError(
+                    f"dist_tp serve {arch} {name}: {legs[0]['route_flips']} "
+                    f"of {legs[0]['routings']} token routings taken from "
+                    f"LM's ({share:.4f}), above {ROUTE_FLIP_SHARE}")
         for r, leg in enumerate(legs):
             if leg["prefill_launches"] != want_prefill or \
                     leg["decode_launches"] != none:
@@ -5110,12 +5376,15 @@ def tp_lm_serve(tmp: Path, arch: str, batch: int, prompt: int,
                 gen: int) -> dict:
     """A serve leg's one-process arm: full ``arch`` through ``LM.prefill``
     and ``gen`` greedy ``decode_step``s in this process from weights made
-    from SEED -> each step's logits on the host, LM's ids and its prefill
-    seconds; the prompt and ids saved for the ranks
-    (``serve-inputs-<arch>.pt``); the model freed.  For a family with its
-    own limit (TP_SERVE_TOL) also its bf16 floor: the same steps on the
-    same weights widened to f32 (TF32 off), driven by LM's ids, and LM's
-    largest error against them, relative to 1 + |logit| and absolute."""
+    from SEED -> each step's logits on the host, LM's ids, its prefill
+    seconds and the arm's; the prompt and ids saved for the ranks
+    (``serve-inputs-<arch>.pt``), with a moe config's routes (each moe
+    layer's top-K of the greedy run, ``RecordRoutes``); the model freed.
+    For a family with its own limit (TP_SERVE_TOL) also its bf16 floor:
+    the same steps on the same weights widened to f32 (TF32 off), driven
+    by LM's ids, and LM's largest error against them, relative to
+    1 + |logit| and absolute."""
+    import contextlib
     import gc
 
     import torch
@@ -5125,6 +5394,7 @@ def tp_lm_serve(tmp: Path, arch: str, batch: int, prompt: int,
     from repro_torch.data import TokenPipeline
     from repro_torch.models import LM
 
+    t_arm = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     cfg = serve_config(arch)
@@ -5152,7 +5422,10 @@ def tp_lm_serve(tmp: Path, arch: str, batch: int, prompt: int,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     del logits, cache
-    want, ids = run()
+    routes: list = []
+    with (RecordRoutes(routes) if cfg.family == "moe"
+          else contextlib.nullcontext()):
+        want, ids = run()
     out = {"want": want, "ids": ids.cpu(), "prefill_seconds": seconds}
     if arch in TP_SERVE_TOL:
         lm.params = tree_map_with_path(lambda _, t: t.float(), lm.params)
@@ -5169,11 +5442,13 @@ def tp_lm_serve(tmp: Path, arch: str, batch: int, prompt: int,
             for a, b in zip(f32, want))
         out["lm_vs_f32_max_abs_err"] = max(
             float((b - a).abs().max()) for a, b in zip(f32, want))
-    torch.save({"tokens": tokens.cpu(), "ids": ids.cpu()},
+    torch.save({"tokens": tokens.cpu(), "ids": ids.cpu(),
+                **({"routes": routes} if routes else {})},
                tmp / f"serve-inputs-{arch}.pt")
     del lm, tokens
     gc.collect()
     torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_arm
     return out
 
 
@@ -5197,7 +5472,16 @@ def phase_dist_tp(tmp: Path) -> dict:
        recurrentgemma-9b (batch 4, prompt 2048), TP_REC_GEN steps, with
        ``sp_decode`` on, the SSD scan 48 times a rank's prefill at 16 of
        32 heads, the RG-LRU scan 26 times at 2048 of the 4096 width and
-       flash 12 times at 8 of 16 q heads over the one kv head;
+       flash 12 times at 8 of 16 q heads over the one kv head; full
+       qwen2-moe-a2.7b (batch 4, prompt 2048), TP_REC_GEN steps,
+       ``sp_decode`` on, EP with 30 of the 60 experts a rank under the
+       global routing, flash 24 times a rank's prefill at 8 of 16 q heads
+       over 8 of 16 kv heads, each moe layer taking ``LM``'s top-K only at
+       a near tie in its own router logits (``FollowRoutes``, within
+       ROUTE_TIE_ULPS bf16 spacings, on at most ROUTE_FLIP_SHARE of the
+       routings; the flips counted by gap); each
+       rank's parameter bytes
+       ``model_memory``'s tp count; the ranks make their weights in turn;
     3. train (TP_TRAIN_LEGS), full width, DIST_STEPS steps of the tp step
        on the ranks against ``build_train_step`` at world size 1 (NCCL,
        in this process, run first and freed, then again with each batch's
@@ -5276,6 +5560,19 @@ def phase_dist_tp(tmp: Path) -> dict:
                                              "lm_vs_f32_max_abs_err")
                          if k in ref},
                       "lm_prefill_seconds": ref["prefill_seconds"],
+                      "lm_seconds": ref["seconds"],
+                      "rank_seconds": [r["serve"][arch]["seconds"]
+                                       for r in ranks],
+                      "weights_seconds": [r["serve"][arch][
+                          "weights_seconds"] for r in ranks],
+                      **({"route_tie_ulps": ROUTE_TIE_ULPS,
+                          "route_flip_share_limit": ROUTE_FLIP_SHARE,
+                          "route_flips": {k: v["ranks"][0]["route_flips"]
+                                          for k, v in serve_legs.items()},
+                          "route_flip_share": {
+                              k: v["ranks"][0]["route_flip_share"]
+                              for k, v in serve_legs.items()}}
+                         if cfg.family == "moe" else {}),
                       "local_param_bytes": [r["serve"][arch][
                           "local_param_bytes"] for r in ranks],
                       "legs": serve_legs,
@@ -5321,12 +5618,15 @@ def main() -> int:
     ap.add_argument("--tp-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", help=argparse.SUPPRESS)
     ap.add_argument("--tp-job", help=argparse.SUPPRESS)
+    ap.add_argument("--wire-storm", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
     if args.tp_rank is not None:
         return tp_rank_main(args.tp_rank, args.tp_world, Path(args.tp_dir),
                             args.tp_job)
+    if args.wire_storm is not None:
+        return wire_storm_main(Path(args.wire_storm))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -5347,9 +5647,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         by_path = {"session": phase_session(Path(tmp))}
         phase_agree(Path(tmp))
-        by_path["socket"] = phase_socket(Path(tmp))
-        by_path["fleet"] = phase_fleet(Path(tmp))
-    by_path["gateway"] = phase_gateway()
+        wire_storm = WireStorm(Path(tmp))
+        try:
+            by_path["socket"] = phase_socket(Path(tmp))
+            by_path["fleet"] = phase_fleet(Path(tmp))
+            by_path["gateway"] = phase_gateway(wire_storm)
+        finally:
+            wire_storm.stop()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         by_path["checkpoint"] = phase_checkpoint(Path(tmp))
     by_path["serve"] = phase_serve()

@@ -66,11 +66,14 @@ attention layers decode through
 :func:`~.decode_attn.sp_decode_attention`.
 
 ``mode="tp"`` with a ``model`` axis above 1 runs tensor-parallel compute
-over that axis for the dense, vlm, ssm and hybrid families
+over that axis for the dense, vlm, ssm, hybrid and moe families
 (:mod:`~.tensor_parallel`): each rank reads its block of every leaf the
 rules split over ``model`` (heads, kv heads, mlp, ssm heads and
-``d_inner``, the lru width, the padded vocab) in place, never gathered
-(``split_of``'s ``in_place``), the context reaches the model, whose
+``d_inner``, the lru width, the padded vocab, the experts under EP or
+each expert's ffn dim under expert-TP, the router's columns under EP) in
+place, never gathered (``split_of``'s ``in_place``; an EP expert's ffn
+dim split over the data axes is gathered over those), the context
+reaches the model, whose
 products meet the whole residual stream through the ``model`` group's
 all-reduces (a leaf replicated over ``model`` that each rank uses for
 its own heads or width only has its gradient summed over ``model``
@@ -78,9 +81,11 @@ there: ``transformer._partly_used``, ``ssm._own_params``, the rec
 gates).  The logits leave as this rank's vocab block; a prefill's
 cache holds this rank's block of the ssm heads and the lru width as the
 model wrote it, and its attention slots, written whole on every rank,
-leave as this rank's block under ``sp_decode``.  Every step builder
-raises there for the moe and encdec families, whose layers have no
-tensor-parallel compute yet (ROADMAP A10b-4b), for an ssm config whose
+leave as this rank's block under ``sp_decode``.  A moe layer routes the
+same tokens on every ``model`` rank, as at one rank, under either
+routing (``models/moe.py``).  Every step builder
+raises there for the encdec family, whose layers have no
+tensor-parallel compute yet (ROADMAP A10b-4d), for an ssm config whose
 rules split ``d_inner`` but not its heads, and for a hybrid one whose
 ``model`` axis does not divide the RG-LRU's gate blocks.
 ``build_decode_step`` in ``fsdp`` with ``ctx.sp_decode`` raises for a
@@ -151,7 +156,7 @@ def cache_specs(lm, B: int, cache_len: int, dtype=torch.bfloat16) -> dict:
 
 
 # the families whose layers have no tensor-parallel compute over 'model' yet
-NOT_TP = ("moe", "encdec")
+NOT_TP = ("encdec",)
 
 
 def _check_mode(ctx: DistContext, cfg) -> None:
@@ -164,7 +169,7 @@ def _check_mode(ctx: DistContext, cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: mode='tp' with a 'model' axis above 1 needs "
             f"tensor-parallel compute in the {cfg.family} family's layers, "
-            f"which is not ported yet (ROADMAP A10b-4b); use mode='fsdp', "
+            f"which is not ported yet (ROADMAP A10b-4d); use mode='fsdp', "
             f"or a 'model' axis of 1 (data parallel)")
     kinds = set(cfg.layer_kinds())
     if "ssm" in kinds:

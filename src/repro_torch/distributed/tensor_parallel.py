@@ -1,8 +1,10 @@
 """Tensor-parallel compute over the mesh's ``model`` axis (Megatron's
-operators), for the tp steps of the dense, vlm, ssm and hybrid families.
+operators), for the tp steps of the dense, vlm, ssm, hybrid and moe
+families.
 
 The reference has no module for this: its GSPMD steps split heads, kv
-heads, mlp and the padded vocab over ``model`` (``make_rules``,
+heads, mlp, the padded vocab and the experts (or each expert's ffn dim)
+over ``model`` (``make_rules``,
 ``context.py:44-86``) and XLA places the collectives.  The port's steps
 run each rank on local tensors, so each rank computes with its own block
 of those leaves, read in place, while the residual stream stays whole on
@@ -21,6 +23,12 @@ operators on the ``model`` group:
 - :func:`gather_model`: an all-gather along a dimension, for the no-grad
   serve paths (the k/v heads a replicated cache holds, the q heads
   ``sp_decode_attention`` reads); its backward raises;
+- :func:`gather_model_grad`: the same all-gather handed out twice, for
+  a use each rank makes of its own part of the work (its gradient
+  summed over ``model``) and one every rank makes alike (its gradient
+  counted once): the moe router's logits under EP, where each rank
+  combines its own experts' slots and every rank holds the whole aux
+  loss;
 - :func:`vocab_embed`: the lookup in this rank's vocab block of the
   embedding, rows outside it 0, then an all-reduce;
 - :func:`vocab_xent`: the cross entropy of vocab-split logits in f32.
@@ -93,14 +101,18 @@ class _SumModel(torch.autograd.Function):
         return _summed(g, ctx.group), None
 
 
+def _gathered(x, dim, group):
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((dist.get_world_size(group) * xt.shape[0],)
+                       + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
 class _GatherModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
-        xt = x.movedim(dim, 0).contiguous()
-        out = xt.new_empty((dist.get_world_size(group) * xt.shape[0],)
-                           + tuple(xt.shape[1:]))
-        dist.all_gather_into_tensor(out, xt, group=group)
-        return out.movedim(0, dim).contiguous()
+        return _gathered(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -109,6 +121,20 @@ class _GatherModel(torch.autograd.Function):
             "this rank's block where every rank uses the gathered tensor "
             "alike, but their sum (a reduce-scatter) where each does its "
             "own part of the work, as sp_decode's slots do")
+
+
+class _GatherGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n, ctx.group = dim, x.shape[dim], group
+        whole = _gathered(x, dim, group)
+        return whole, whole.clone()
+
+    @staticmethod
+    def backward(ctx, g_part, g_whole):
+        g = _summed(g_part, ctx.group) + g_whole
+        lo = block_start(ctx.n, ctx.group)
+        return g.narrow(ctx.dim, lo, ctx.n).contiguous(), None, None
 
 
 def to_model(x, group):
@@ -137,6 +163,17 @@ def gather_model(x, dim: int, group):
     order, for the serve paths, which run under ``no_grad``: its backward
     raises (the right gradient depends on how the ranks use the result)."""
     return x if group is None else _GatherModel.apply(x, dim, group)
+
+
+def gather_model_grad(x, dim: int, group):
+    """Every ``model`` rank's ``x`` concatenated along ``dim`` in rank
+    order (an all-gather), as two tensors ``(part, whole)`` of the same
+    values, differentiable: ``part`` for what each rank computes only its
+    share of (its gradient summed over the ranks), ``whole`` for what every
+    rank computes alike (its gradient the same on every rank, counted
+    once).  The gradient of ``x`` is this rank's block of the sum of the
+    two.  Without a group, ``(x, x)``."""
+    return (x, x) if group is None else _GatherGrad.apply(x, dim, group)
 
 
 def block_start(n_local: int, group) -> int:

@@ -31,12 +31,21 @@ the reference:
   are identities in the port.
 - *Local* (``moe_ffn_shardmap``, chosen by ``ctx.extra["moe_impl"] ==
   "shardmap"`` in tp mode, the reference's shard_map).  Each rank routes
-  its own rows (capacity :func:`shardmap_capacity` of its tokens) and runs
-  its block of the experts: EP (``expert_mode`` ``ep``) model rank j the
-  experts ``[j E/m, (j+1) E/m)``, buffering only the slots routed to them;
-  expert-TP (``tp``) the j-th 1/m of every expert's ffn dim.  The layer
-  ends in one (T_local, d) sum over the ``model`` group; the aux loss
-  comes from the batch group's summed ``me`` and ``ce``.
+  its own rows (capacity :func:`shardmap_capacity` of its tokens); the
+  aux loss comes from the batch group's summed ``me`` and ``ce``.
+
+Under a tp context with a ``model`` axis above one rank, either routing
+runs its block of the experts, as ``make_rules`` splits them
+(``context.py:66-85``): EP (``expert_mode`` ``ep``, the model axis
+divides ``num_experts``) model rank j the experts ``[j E/m, (j+1) E/m)``
+and the router's columns of them, buffering only the slots routed to
+them; expert-TP (``tp``) the j-th 1/m of every expert's ffn dim, the
+router whole.  The shared expert is split as a SwiGLU mlp.  The tp steps
+hand the layer these blocks, read in place (an EP expert's ffn dim split
+over the data axes is gathered by the step's per-unit gather first);
+every model rank routes the same tokens to the same experts, and the
+layer ends in one (T, d) all-reduce over ``model`` of the routed and the
+shared expert's partial outputs (:func:`_split_experts`).
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.context import gather_rows
 from repro_torch.models.layers import P, silu, swiglu
 
@@ -92,16 +102,22 @@ def top_k(probs, k: int):
 def moe_ffn(p, x, cfg, ctx=None):
     """x: (B, S, d) -> (out, aux_loss).  With a ``DistContext`` whose batch
     group has more than one rank (this rank's rows of a split batch),
-    routing, capacity and aux follow the group's tokens; with
-    ``ctx.extra["moe_impl"] == "shardmap"`` and an ``ep`` or ``tp``
-    expert mode, :func:`moe_ffn_shardmap` routes this rank's own tokens
-    (module docstring).  fsdp's expert mode (``fsdp``) keeps the global
-    routing, as the reference's dispatch does (``moe.py:163-165``)."""
+    routing, capacity and aux follow the group's tokens; under a tp
+    context with a ``model`` axis above one rank the experts are split
+    over it (:func:`_split_experts`); with ``ctx.extra["moe_impl"] ==
+    "shardmap"`` and an ``ep`` or ``tp`` expert mode,
+    :func:`moe_ffn_shardmap` routes this rank's own tokens (module
+    docstring).  fsdp's expert mode (``fsdp``) keeps the global routing,
+    as the reference's dispatch does (``moe.py:163-165``)."""
     if (ctx is not None and ctx.extra.get("moe_impl") == "shardmap"
             and ctx.rules.get("expert_mode") in ("ep", "tp")):
         return moe_ffn_shardmap(p, x, cfg, ctx)
     B, S, d = x.shape
     group = None if ctx is None else ctx.batch_group()
+    mgroup = tp.model_group(ctx)
+    if mgroup is not None:
+        return _global_over_model(p, x, cfg, ctx.rules["expert_mode"],
+                                  group, mgroup)
     if group is None:
         out, aux = _routed(p, x.reshape(B * S, d), cfg)
     else:
@@ -127,7 +143,11 @@ def _shared(p, x, cfg, out):
 
 def _route(xt, router, cfg):
     """Tokens (T, d) -> (probs (T, E) f32, gate (T, K), idx (T, K))."""
-    logits = (xt @ router).float()
+    return _choose((xt @ router).float(), cfg)
+
+
+def _choose(logits, cfg):
+    """The router's f32 logits (T, E) -> (probs, gate (T, K), idx (T, K))."""
     probs = torch.softmax(logits, dim=-1)
     gate, idx = top_k(probs, cfg.experts_per_tok)             # (T,K)
     if cfg.norm_topk_prob:
@@ -135,20 +155,23 @@ def _route(xt, router, cfg):
     return probs, gate, idx
 
 
+def _switch_aux(probs, idx, cfg):
+    """The load-balance auxiliary loss (Switch-style) of the tokens'
+    router probabilities (T, E) and top-K choices (T, K)."""
+    E = cfg.num_experts
+    experts = torch.arange(E, device=probs.device)
+    me = probs.mean(dim=0)
+    ce = (idx[:, :1] == experts).float().mean(dim=0)          # one-hot
+    return cfg.router_aux_coef * E * (me * ce).sum()
+
+
 def _routed(p, xt, cfg):
     """The routed experts over tokens xt (T, d) -> (out (T, d), aux)."""
     T = xt.shape[0]
-    E = cfg.num_experts
     probs, gate, idx = _route(xt, p["router"], cfg)
-
-    # Load-balance auxiliary loss (Switch-style).
-    experts = torch.arange(E, device=xt.device)
-    me = probs.mean(dim=0)
-    ce = (idx[:, :1] == experts).float().mean(dim=0)          # one-hot
-    aux = cfg.router_aux_coef * E * (me * ce).sum()
-
+    aux = _switch_aux(probs, idx, cfg)
     out = _experts(xt, gate, idx, p["w_gate"], p["w_up"], p["w_down"],
-                   _capacity(T, cfg), E)
+                   _capacity(T, cfg), cfg.num_experts)
     return out, aux
 
 
@@ -200,114 +223,136 @@ def _experts(xt, gate, idx, w_gate, w_up, w_down, C: int, E: int,
 
 
 # ----------------------------------------------------------------------
-# local routing (the reference's shard_map)
+# the experts split over 'model' (tp with a model axis above one rank)
 # ----------------------------------------------------------------------
 
-class _FromReplicated(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over ``group``: an
-    input every rank of the group holds, read by each rank's share of a
-    sum (shard_map's transpose of an input replicated over the axis)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+def _block_of(size: int, m: int, what: str) -> int:
+    if size % m:
+        raise ValueError(f"{what} of {size} does not split over a 'model' "
+                         f"axis of {m}")
+    return size // m
 
 
-class _SumOver(torch.autograd.Function):
-    """The sum over ``group`` of each rank's partial (the reference's
-    ``psum``); the backward the identity: every rank holds the summed
-    output and its whole gradient."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+def _check_blocks(leaves, n: int) -> None:
+    """Each (leaf, dim) of ``leaves`` is this rank's block: ``n`` along
+    ``dim``, as the tp steps hand the layer its weights."""
+    for w, dim in leaves:
+        if w.shape[dim] != n:
+            raise ValueError(f"moe over 'model': a leaf of shape "
+                             f"{tuple(w.shape)}, not this rank's block of "
+                             f"{n} along dim {dim}")
 
 
-def _replicated(t, group):
-    """``t`` through :class:`_FromReplicated` where a gradient will flow
-    and the group has more than one rank, else ``t`` itself."""
-    if group is None or not (torch.is_grad_enabled() and t.requires_grad):
-        return t
-    return _FromReplicated.apply(t, group)
+def _split_experts(p, xt, cfg, expert_mode: str, mgroup, C: int):
+    """The routed experts of tokens ``xt`` (T, d), whole on every ``model``
+    rank, over this rank's block of them -> (``xm``, the aux's logits,
+    idx, this rank's partial output (T, d)).
 
-
-def local_experts(p, cfg, expert_mode: str, j: int, m: int):
-    """Model rank j of m's block of the routed experts' weights -> (w_gate,
-    w_up, w_down, e0), e0 the first expert of the block: EP the experts
-    ``[j E/m, (j+1) E/m)``, expert-TP every expert's j-th 1/m of the ffn
-    dim (columns of w_gate and w_up, rows of w_down).
-
-    The reference's layer holds the ff dim sharded over the data axes
-    under EP and all-gathers it here (``moe.py:112-116``).  In the port's
-    steps that gather is the per-unit gather of ``distributed/fsdp.py``
-    (``UnitGather``), which hands the layer its weights full, each unit
-    just before it runs; this slice is the one place that takes the
-    rank's block of them."""
-    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
-    if m == 1:
-        return wg, wu, wd, 0
+    EP (``expert_mode`` ``ep``): rank j's experts ``[j E/m, (j+1) E/m)``
+    and its column block (d, E/m) of the router; the logits' blocks are
+    gathered (:func:`~repro_torch.distributed.tensor_parallel.
+    gather_model_grad`) so that every rank routes the same (T, E)
+    probabilities.  Expert-TP (``tp``): every expert's j-th 1/m of the ffn
+    dim, the router whole.  Each rank combines only its own experts' (or
+    ffn blocks') slots, so the combine's gradient into the router's logits
+    is summed over ``model``; the aux loss, which every rank holds whole,
+    reads the same logits through a path whose gradient is not summed, so
+    it counts once.  ``xm`` is ``xt`` through ``to_model``, the input of
+    every product with a block of weights."""
+    m, j = dist.get_world_size(mgroup), dist.get_rank(mgroup)
+    E = cfg.num_experts
+    xm = tp.to_model(xt, mgroup)
+    w = [p["w_gate"], p["w_up"], p["w_down"]]
     if expert_mode == "ep":
-        n = cfg.num_experts // m
+        n = _block_of(E, m, "num_experts")
+        _check_blocks(zip(w + [p["router"]], (0, 0, 0, 1)), n)
+        logits, aux_logits = tp.gather_model_grad(
+            (xm @ p["router"]).float(), 1, mgroup)
         e0 = j * n
-        return wg[e0:e0 + n], wu[e0:e0 + n], wd[e0:e0 + n], e0
-    if cfg.d_ff % m:
-        raise ValueError(f"expert-TP splits d_ff {cfg.d_ff} over a 'model' "
-                         f"axis of {m}, which does not divide it")
-    f = cfg.d_ff // m
-    cols = slice(j * f, (j + 1) * f)
-    return wg[:, :, cols], wu[:, :, cols], wd[:, cols], 0
+    else:
+        _check_blocks(zip(w, (2, 2, 1)),
+                      _block_of(cfg.d_ff, m, "expert-TP's d_ff"))
+        aux_logits = (xt @ p["router"]).float()
+        logits = tp.to_model(aux_logits, mgroup)
+        e0 = 0
+    _, gate, idx = _choose(logits, cfg)
+    return xm, aux_logits, idx, _experts(xm, gate, idx, *w, C, E, e0)
 
+
+def _shared_part(sp, xm, cfg, mgroup):
+    """This rank's part of the shared expert on ``xm`` (T, d): its block
+    of the mlp (columns of w_gate and w_up, rows of w_down) times the
+    sigmoid gate, whose (d, 1) weight every rank holds whole and uses for
+    its own part only (so its gradient is summed over ``model``)."""
+    f = _block_of(cfg.shared_expert_d_ff, dist.get_world_size(mgroup),
+                  "shared_expert_d_ff")
+    _check_blocks(zip((sp["w_gate"], sp["w_up"], sp["w_down"]), (1, 1, 0)),
+                  f)
+    sgate = torch.sigmoid((xm @ tp.to_model(sp["gate"], mgroup)).float())
+    return sgate.to(xm.dtype) * swiglu(xm, sp["w_gate"], sp["w_up"],
+                                       sp["w_down"])
+
+
+def _global_over_model(p, x, cfg, expert_mode: str, bgroup, mgroup):
+    """:func:`moe_ffn`'s global routing with the experts split over
+    ``model`` (the reference's GSPMD program at ``moe.py:161-220`` under
+    tp): the batch group's tokens gathered as at one ``model`` rank,
+    routed with ``_capacity(T_global)`` and run through this rank's block
+    of the experts (:func:`_split_experts`); this rank's rows of that
+    partial output plus its part of the shared expert leave in one
+    all-reduce over ``model`` (``from_model``)."""
+    B, S, d = x.shape
+    xg = x if bgroup is None else gather_rows(x, bgroup)
+    xt = xg.reshape(-1, d)
+    xm, aux_logits, idx, out = _split_experts(
+        p, xt, cfg, expert_mode, mgroup, _capacity(xt.shape[0], cfg))
+    aux = _switch_aux(torch.softmax(aux_logits, dim=-1), idx, cfg)
+    if bgroup is not None:
+        rows = slice(dist.get_rank(bgroup) * B * S,
+                     (dist.get_rank(bgroup) + 1) * B * S)
+        out, xm = out[rows], xm[rows]
+    if cfg.shared_expert_d_ff:
+        out = out + _shared_part(p["shared"], xm, cfg, mgroup)
+    return tp.from_model(out, mgroup).reshape(B, S, d), aux
+
+
+# ----------------------------------------------------------------------
+# local routing (the reference's shard_map)
+# ----------------------------------------------------------------------
 
 def moe_ffn_shardmap(p, x, cfg, ctx):
     """MoE with *local* token routing (port of the reference's
     ``moe_ffn_shardmap``, ``moe.py:46-158``): x (B, S, d) is this rank's
-    rows of the batch group, the weights full.  Returns (out, aux) as
-    :func:`moe_ffn`.
+    rows of the batch group.  Returns (out, aux) as :func:`moe_ffn`.
 
     This rank routes its own B S tokens (capacity
-    :func:`shardmap_capacity`) and runs its block of the experts
-    (:func:`local_experts`); the partial outputs are summed over the
-    ``model`` group (backward the identity).  x, the router and the
-    expert weights, which the block reads replicated over ``model``, pass
-    through an identity whose backward sums over ``model``, so every rank
-    holds the reference's gradients.  The aux loss follows the batch
-    group's tokens: the (E,) sums of the router's probabilities and of the
-    top-1 one-hot are summed over the batch group, the first with a
-    summing backward, so that after the step's mean over the batch group
-    the router's gradient is the reference's.  The shared expert runs on
-    the local rows.  A group of one rank issues no collective."""
+    :func:`shardmap_capacity`).  With a ``model`` axis above one rank it
+    runs its block of the experts (:func:`_split_experts`), and its
+    partial output, with its part of the shared expert, is summed over
+    the ``model`` group in one all-reduce (the reference's one ``psum``).
+    The weights come as this rank's blocks (the tp steps hand them over,
+    read in place).  The aux loss follows the batch group's tokens: the (E,)
+    sums of the router's probabilities and of the top-1 one-hot are summed
+    over the batch group, the first with a summing backward, so that after
+    the step's mean over the batch group the router's gradient is the
+    reference's.  A group of one rank issues no collective."""
     B, S, d = x.shape
     E = cfg.num_experts
     T = B * S
-    mgroup, bgroup = ctx.group(("model",)), ctx.batch_group()
-    m = 1 if mgroup is None else dist.get_world_size(mgroup)
-    j = 0 if mgroup is None else dist.get_rank(mgroup)
+    mgroup, bgroup = tp.model_group(ctx), ctx.batch_group()
     xt = x.reshape(T, d)
-
-    xm = _replicated(xt, mgroup)
-    probs, gate, idx = _route(xm, _replicated(p["router"], mgroup), cfg)
-    wg, wu, wd, e0 = local_experts(
-        {k: _replicated(p[k], mgroup) for k in ("w_gate", "w_up", "w_down")},
-        cfg, ctx.rules["expert_mode"], j, m)
-    out = _experts(xm, gate, idx, wg, wu, wd, shardmap_capacity(T, cfg), E,
-                   e0)
-    if mgroup is not None:
-        out = _SumOver.apply(out, mgroup)
-        # the aux loss's router product stays off the model sum
-        probs = torch.softmax((xt @ p["router"]).float(), dim=-1)
+    C = shardmap_capacity(T, cfg)
+    if mgroup is None:
+        probs, gate, idx = _route(xt, p["router"], cfg)
+        out = _shared(p, x, cfg, _experts(xt, gate, idx, p["w_gate"],
+                                          p["w_up"], p["w_down"], C, E))
+    else:
+        xm, aux_logits, _, out = _split_experts(
+            p, xt, cfg, ctx.rules["expert_mode"], mgroup, C)
+        if cfg.shared_expert_d_ff:
+            out = out + _shared_part(p["shared"], xm, cfg, mgroup)
+        out = tp.from_model(out, mgroup).reshape(B, S, d)
+        probs = torch.softmax(aux_logits, dim=-1)
 
     # aux load-balance loss on the batch group's tokens
     me = probs.sum(dim=0)
@@ -316,9 +361,10 @@ def moe_ffn_shardmap(p, x, cfg, ctx):
         0, top, torch.ones_like(top, dtype=torch.float32))
     n_tokens = T
     if bgroup is not None:
-        # summed, and so is its gradient: the all-reduce's own adjoint
-        me = _SumOver.apply(_replicated(me, bgroup), bgroup)
+        # summed over the batch group, and so is its gradient (the
+        # all-reduce's own adjoint): sum_model's operator on that group
+        me = tp.sum_model(me, bgroup)
         dist.all_reduce(ce, group=bgroup)
         n_tokens = T * dist.get_world_size(bgroup)
     aux = cfg.router_aux_coef * E * ((me / n_tokens) * (ce / n_tokens)).sum()
-    return _shared(p, x, cfg, out), aux
+    return out, aux

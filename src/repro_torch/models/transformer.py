@@ -22,7 +22,7 @@ hook (:class:`WholeParams` by default; a sharded step's per-unit gather,
 ``distributed/fsdp.py``).
 
 Under a tp context with a ``model`` axis above one rank (the dense,
-vlm, ssm and hybrid families) each rank holds its block of the heads (where ``make_rules``
+vlm, ssm, hybrid and moe families) each rank holds its block of the heads (where ``make_rules``
 splits them), of the kv heads (where it splits those) and of the mlp
 width, read in place, and the residual stream stays whole on every rank:
 an attention block's and a SwiGLU's input enters through ``to_model``,
@@ -39,7 +39,12 @@ and keeps its own heads of the output.  The ssm and rec mixers split
 their own width (``ssm.py``, ``griffin.py``), a rec block's MLP its
 ``d_ff``; their caches hold this rank's block of the ssm heads and of
 the lru width, and a mamba2 layer's conv state every rank's channels,
-gathered before each write.
+gathered before each write.  A moe layer's FFN holds this rank's
+block of the routed experts (EP: E/m whole experts and the router's
+columns of them; expert-TP: every expert's 1/m of the ffn dim, the
+router whole) and of the shared expert's mlp, and routes the same tokens
+on every rank (``moe.py``); its attention is the dense family's.  Decode
+runs the same layer with T = B tokens.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ mesh, beside its spawns).
 
 The test process keeps its one CPU device (``tests/conftest.py``), so the
 parent starts this script with ``XLA_FLAGS=--xla_force_host_platform_
-device_count=8``:
+device_count=8`` (or as many devices as its largest mesh needs):
 
     python tests/_jax_sharded_ref.py --jobs jobs.json --inputs in.npz \\
         --out out.npz
@@ -85,11 +85,13 @@ def main(argv=None) -> int:
     from repro.models.moe import moe_ffn
     from repro.optim import init_opt_state
 
-    if jax.device_count() < 8:
-        raise RuntimeError(f"{jax.device_count()} devices: start this with "
-                           f"XLA_FLAGS=--xla_force_host_platform_device_count=8")
     with open(args.jobs) as f:
         jobs = json.load(f)
+    need = max([int(np.prod(job["mesh"])) for job in jobs], default=1)
+    if jax.device_count() < need:
+        raise RuntimeError(f"{jax.device_count()} devices for meshes of "
+                           f"{need}: start this with XLA_FLAGS="
+                           f"--xla_force_host_platform_device_count={need}")
     data = np.load(args.inputs)
     out: dict = {}
 

@@ -9,9 +9,11 @@ parent test writes the weights, inputs and batches of every case into an
 
 ``layer``: each case of :data:`LAYER_CASES` on this mesh (f32) drives
 ``moe_ffn`` with ``moe_impl="shardmap"`` directly: this rank's rows of x,
-the full weights, ``sum(out * c) / T_local + aux`` and its backward.  The
-weights' gradients are averaged over the batch group, as the train step
-reduces them; every rank writes its output rows, aux, loss, gradients and
+its block of each weight over ``model`` (:func:`model_blocks`, as the tp
+steps hand it), ``sum(out * c) / T_local + aux`` and its backward.  The
+blocks' gradients are gathered over ``model`` and every gradient is
+averaged over the batch group, as the train step reduces them; every rank
+writes its output rows, aux, loss, gradients and
 x's gradient (divided by the batch group's size) into
 ``DIR/layer-R.npz``.
 
@@ -77,9 +79,24 @@ def _leaves(tree, path: str = ""):
         yield path, tree
 
 
+def model_blocks(cfg, ctx) -> dict:
+    """Leaf path -> the dim its ``model`` block splits (``moe_spec``'s
+    logical axes under ``ctx.rules``), for the leaves split over
+    ``model``."""
+    from repro_torch.models.moe import moe_spec
+
+    def on_model(axis):
+        got = ctx.rules.get(axis)
+        return got == "model" or (isinstance(got, tuple) and "model" in got)
+    return {path: next(d for d, a in enumerate(leaf.axes) if on_model(a))
+            for path, leaf in _leaves(moe_spec(cfg))
+            if any(on_model(a) for a in leaf.axes)}
+
+
 def run_layers(mesh, data, rank: int, outdir: Path) -> None:
     from repro_torch.configs import get_config
     from repro_torch.distributed import DistContext
+    from repro_torch.distributed.tensor_parallel import model_group
     from repro_torch.models.moe import moe_ffn
 
     shape = tuple(mesh.shape)
@@ -94,9 +111,19 @@ def run_layers(mesh, data, rank: int, outdir: Path) -> None:
         ctx = DistContext.create(cfg, mesh)
         ctx.extra["moe_impl"] = "shardmap"
         prefix = f"{key}|p|"
-        p = serve_worker._tree({
-            n[len(prefix):]: torch.from_numpy(data[n].copy()).requires_grad_()
-            for n in data.files if n.startswith(prefix)})
+        mgroup = model_group(ctx)
+        blocks = model_blocks(cfg, ctx) if mgroup is not None else {}
+        m = dist.get_world_size(mgroup) if mgroup is not None else 1
+        j = dist.get_rank(mgroup) if mgroup is not None else 0
+        whole = serve_worker._tree({n[len(prefix):]: data[n]
+                                    for n in data.files
+                                    if n.startswith(prefix)})
+        leaves = {}
+        for path, w in _leaves(whole):
+            if path in blocks:
+                w = np.split(w, m, axis=blocks[path])[j]
+            leaves[path] = torch.from_numpy(w.copy()).requires_grad_()
+        p = serve_worker._tree(leaves)
         x = torch.from_numpy(data[f"{key}|x"][rows].copy()).requires_grad_()
         c = torch.from_numpy(data[f"{key}|c"][rows].copy())
         y, aux = moe_ffn(p, x, cfg, ctx)
@@ -105,6 +132,10 @@ def run_layers(mesh, data, rank: int, outdir: Path) -> None:
         group = ctx.batch_group()
         for path, t in _leaves(p):
             g = t.grad
+            if path in blocks:
+                parts = [torch.empty_like(g) for _ in range(m)]
+                dist.all_gather(parts, g.contiguous(), group=mgroup)
+                g = torch.cat(parts, dim=blocks[path])
             if group is not None:
                 dist.all_reduce(g, group=group)
                 g = g / n_data

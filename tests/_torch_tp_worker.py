@@ -12,13 +12,15 @@ mesh of D x M CPU ranks, from the case's f32 weights:
 
 - ``train``: two ``build_train_step`` steps (``remat``,
   ``microbatches``; ``seq`` and ``batch`` where the job gives them, else
-  ``SEQ`` and ``BATCH``).
+  ``SEQ`` and ``BATCH``; a moe config's ``moe_impl`` where the job gives
+  it, for train and serve jobs alike).
   Rank 0 writes the losses, grad norms and lrs, the gathered m after
   step 1 and master and parameters after step 2 into ``DIR/result.npz``;
   every rank writes into ``DIR/bytes-R.json`` the elements of each
   parameter leaf and of each leaf of m, v and master it holds before the
-  steps and after each (``[local, full]``), and the step's
-  ``gather_stats``.
+  steps and after each (``[local, full]``), the step's
+  ``gather_stats``, and the mesh axes each leaf the step gathers is
+  split over (``split_axes``, by path; leaves read in place left out).
 - ``serve``: ``build_prefill_step`` (a cache of ``cache_len`` slots: the
   prompt, a vlm's patches, the steps) and ``STEPS`` greedy
   ``build_decode_step`` steps on its own ids (``sp_decode``; the job's
@@ -79,6 +81,7 @@ def run_train(job, mesh, data, out: dict, nbytes: dict) -> None:
         DistContext, build_train_step, distribute_tree, gather_tree,
         init_sharded_opt_state,
     )
+    from repro_torch.distributed import steps
     from repro_torch.models import LM
 
     def held(params, opt):
@@ -93,6 +96,8 @@ def run_train(job, mesh, data, out: dict, nbytes: dict) -> None:
     cfg = config(job["arch"], job["replace"], get_config)
     lm = LM(cfg, max_seq=job.get("seq", SEQ), device="cpu")
     ctx = DistContext.create(cfg, mesh, mode="tp")
+    if job.get("moe_impl"):
+        ctx.extra["moe_impl"] = job["moe_impl"]
     tc = TrainConfig(microbatches=job["microbatches"], remat=job["remat"],
                      **TRAIN)
     step_fn, (p_sh, o_sh, _) = build_train_step(
@@ -114,6 +119,8 @@ def run_train(job, mesh, data, out: dict, nbytes: dict) -> None:
             for p, sq in step_fn.grad_sq.items():
                 out[f"{key}|grad_sq1|{p}"] = float(sq)
     record["gather_stats"] = dict(step_fn.gather_stats)
+    record["split_axes"] = {p: list(sp.axes) for p, sp in
+                            steps._splits(ctx, p_sh).items() if sp.axes}
     nbytes[key] = record
     for name, tree in (("master2", opt.master), ("params2", params)):
         for p, t in tree_flatten_with_path(gather_tree(tree)):
@@ -136,6 +143,8 @@ def run_serve(job, mesh, data, out: dict, nbytes: dict) -> None:
     lm = LM(cfg, max_seq=total, device="cpu")
     ctx = DistContext.create(cfg, mesh, mode="tp",
                              sp_decode=job["sp_decode"])
+    if job.get("moe_impl"):
+        ctx.extra["moe_impl"] = job["moe_impl"]
     pf, (p_sh, _, _, _) = build_prefill_step(
         lm, ctx, ShapeConfig("p", "prefill", S, B), cache_len=total)
     df, _ = build_decode_step(lm, ctx, ShapeConfig("d", "decode", total, B))
@@ -217,6 +226,15 @@ def ops_rank(data, rank: int, n: int, group) -> dict:
     if group is not None:
         _, gy, gw, _ = gated_norm(tp.from_model)
         out.update(norm_identity_gy=gy, norm_identity_gw=gw)
+    # the EP router's logits: a column block, gathered for a use each rank
+    # makes of its own share of the rows and for one every rank makes alike
+    xr, wr = leaf(torch.from_numpy(data["x"])), leaf(block(data["w_col"], 1))
+    part, whole = tp.gather_model_grad(tp.to_model(xr, group) @ wr, 2, group)
+    own = torch.zeros_like(part)
+    own[:, rank::n] = 1.0
+    c = torch.from_numpy(data["c"])
+    ((part * own * c).sum() + torch.tanh(whole).sum()).backward()
+    out.update(router=whole.detach(), router_gx=xr.grad, router_gw=wr.grad)
     table = leaf(block(data["table"], 0))               # (Vp, d) rows
     e = tp.vocab_embed(table, torch.from_numpy(data["ids"]), group)
     (e * torch.from_numpy(data["c"])).sum().backward()

@@ -10,7 +10,10 @@ tanh and a row-split product (an MLP); ``gather_model`` of a heads
 dimension (forward only: its backward raises); ``split_rms_norm`` (its
 ``sum_model``) of a split width, then a row-split product (mamba2's
 gated norm; also with ``from_model`` in ``sum_model``'s place, whose
-identity backward gives the norm's input a wrong gradient); ``vocab_embed`` of a
+identity backward gives the norm's input a wrong gradient);
+``gather_model_grad`` of a column-split product's blocks, its two outputs
+used as the EP moe router uses them (one for each rank's share of the
+rows, one alike on every rank); ``vocab_embed`` of a
 vocab-split table; ``vocab_xent`` of vocab-split logits whose padded
 columns (13 of 16 used) lie in the last rank's block.  The parent runs
 the same function with no group: the plain products, ``table[ids]`` and
@@ -55,7 +58,8 @@ VOCAB, PADDED = 13, 16
 SPLIT = {"mlp": None, "mlp_gx": None, "mlp_gw_col": 1, "mlp_gw_row": 0,
          "gather": None, "norm": None, "norm_gy": 2, "norm_gw": 0,
          "norm_gw_out": 0, "embed": None, "embed_gtable": 0,
-         "xent": None, "xent_glogits": 2}
+         "xent": None, "xent_glogits": 2, "router": None, "router_gx": None,
+         "router_gw": 1}
 
 
 def _inputs() -> dict:
