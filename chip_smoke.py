@@ -31,7 +31,8 @@ Phases, each printing one JSON line:
             shapes (flash at yi-6b's hd 128, stablelm-12b's hd 160,
             recurrentgemma's hd 256, qwen3-moe's GQA 64:4, a dist_tp
             rank's qwen2-moe (8 of 16 heads), whisper-tiny's
-            encoder, unmasked at S 1500, and decoder prompt, hd 64), the
+            encoder, unmasked at S 1500, and decoder prompt, hd 64, at
+            all 6 heads and at a dist_tp rank's 3), the
             CPU tests' shapes, ragged ones and the tensor-core routes' edges
             (S under one tile, full attention, H/KV 2 and 16; one chunk,
             Q = 100, H not a multiple of the 8-head block), f32 within 2e-5
@@ -62,8 +63,10 @@ Phases, each printing one JSON line:
             torch.logsumexp of the plain scores: f32 1e-5, bf16 4e-3), at
             the training shapes (minicpm-2b's q (2,36,1024,64) and
             demo-100m's (4,12,256,64) causal, yi-6b's GQA 32:4 at hd 128,
-            hd 160 and 256, whisper-tiny's unmasked S 1500, S under one
-            tile, ragged S), and bf16 at the tensor-core route's tile edges
+            hd 160 and 256, whisper-tiny's unmasked S 1500, also at a
+            dist_tp rank's 3 of 6 heads (timed beside SDPA's backward), S
+            under one tile, ragged S), and bf16 at the tensor-core route's
+            tile edges
             (hd 64 and 128, S 31-33, 63-65, 127-129, GQA 4:1 and 8:1, B 1
             and 2; the sweep route's at hd 160 and 256, S 1, 20, 31, 33,
             63, 65, 127, 129, GQA 16:1 and 4:1), f32 within 1e-4 and bf16
@@ -251,20 +254,25 @@ Phases, each printing one JSON line:
             ``LM``'s it takes ``LM``'s only at a near tie in its own
             router logits, within 36 bf16 spacings, on at most 0.227 of
             the routings, and the flips are counted by gap) with
-            sp_decode on, 8 steps each; each rank's parameter bytes
+            sp_decode on, 8 steps each; full whisper-tiny (batch 4, a
+            decoder prompt of 384 over the pipeline's 1500 encoder frames,
+            32 steps) with sp_decode off and on (flash 8 launches a rank's
+            prefill at 3 of 6 heads: 4 unmasked in the encoder, 4 causal
+            in the decoder); each rank's parameter bytes
             ``model_memory``'s tp count, the ranks making their seeded
             weights in turn; full-width training
             against ``build_train_step`` at world size 1 (loss within
             1e-3, grad norm within 1e-2, each leaf's gradient norm within
             2e-2): minicpm-2b (the most of 40, 20 and 10 layers at which
-            both ranks fit), mamba2-370m (48, 24, 12) and
-            recurrentgemma-9b (6, 3), each kernel and its backward once a
-            layer of its kind at the rank's shape; seconds, each rank's
+            both ranks fit), mamba2-370m (48, 24, 12),
+            recurrentgemma-9b (6, 3) and whisper-tiny (all 4 decoder and 4
+            encoder layers, batch 4, seq 384), each kernel and its backward
+            once a layer of its kind at the rank's shape; seconds, each rank's
             peak memory beside ``model_memory`` for tp on (1, 2), and the
             collectives' bytes and share of the step (host-staged gloo,
             not NCCL's times).  The kernel checks hold the SSD scan, the
-            RG-LRU scan and hd-256 flash, forward and backward, at these
-            rank shapes too.
+            RG-LRU scan, hd-256 flash and whisper-tiny's flash, forward and
+            backward, at these rank shapes too.
 
 Every peak of device memory (the serve cells, the train legs, dist_train,
 dist_serve) is printed beside ``launch.memmodel.model_memory``'s terms and
@@ -1018,6 +1026,13 @@ def phase_lm_kernels() -> list[dict]:
     moe_tp_fa = (MOE_BATCH, q2.num_heads // TP_WORLD,
                  q2.num_kv_heads // TP_WORLD, MOE_PROMPT,
                  q2.resolved_head_dim)
+    # a dist_tp rank's whisper-tiny prefill: 3 of 6 q and kv heads, the
+    # encoder unmasked over its 1500 frames, the decoder's causal prompt
+    wh_tp_enc = (WH_BATCH, wh.num_heads // TP_WORLD,
+                 wh.num_kv_heads // TP_WORLD, wh.encoder_seq,
+                 wh.resolved_head_dim)
+    wh_tp_dec = (WH_BATCH, wh.num_heads // TP_WORLD,
+                 wh.num_kv_heads // TP_WORLD, WH_PROMPT, wh.resolved_head_dim)
     fa_cases = [(main_fa, bf16, True), (main_fa, f32, True),
                 ((1, 4, 4, 128, 64), f32, True), ((2, 8, 2, 256, 64), f32, True),
                 ((1, 8, 1, 128, 128), f32, True), ((1, 6, 6, 192, 32), f32, True),
@@ -1050,7 +1065,9 @@ def phase_lm_kernels() -> list[dict]:
                 (wh_enc, bf16, False), (wh_enc, f32, False),
                 (wh_dec, bf16, True), (q3_fa, bf16, True),
                 (rg_tp_fa, bf16, True), (rg_tp_fa, f32, True),
-                (moe_tp_fa, bf16, True)]
+                (moe_tp_fa, bf16, True), (wh_tp_enc, bf16, False),
+                (wh_tp_enc, f32, False), (wh_tp_dec, bf16, True),
+                (wh_tp_dec, f32, True)]
     checked = []
     for (B, H, KV, S, hd), dtype, causal in fa_cases:
         q = randn((B, H, S, hd), dtype)
@@ -1138,6 +1155,9 @@ def phase_lm_kernels() -> list[dict]:
              "qwen3_gqa": time_flash(*q3_fa),
              # a dist_tp rank's qwen2-moe prefill: 8 of 16 q and kv heads
              "moe_tp2": time_flash(*moe_tp_fa),
+             # a dist_tp rank's whisper-tiny prefill: 3 of 6 q and kv heads
+             "whisper_encoder_tp2": time_flash(*wh_tp_enc, causal=False),
+             "whisper_decoder_tp2": time_flash(*wh_tp_dec),
              "checked_shapes": checked}]
 
     # -- SSD scan --------------------------------------------------------
@@ -1338,8 +1358,9 @@ def phase_flash_bwd() -> list[dict]:
     log-sum-exp against ``torch.logsumexp`` of the plain scores), at the
     training shapes (the train phase's: minicpm-2b's q (2,36,1024,64) and
     full demo-100m's (4,12,256,64), causal; yi-6b's GQA 32:4 at hd 128; hd
-    160 and 256; whisper-tiny's unmasked S 1500; S under one tile; ragged
-    S), f32 and bf16; two calls must give the same bits.  At minicpm-2b's
+    160 and 256; whisper-tiny's unmasked S 1500; a tp rank's whisper-tiny
+    encoder and decoder; S under one tile; ragged S), f32 and bf16; two
+    calls must give the same bits.  At minicpm-2b's
     shape, times the kernel, its device time, the plain formulas and the
     backward of ``scaled_dot_product_attention`` (through
     ``torch.autograd.grad``; the port never calls it), and likewise the
@@ -1394,6 +1415,17 @@ def phase_flash_bwd() -> list[dict]:
     rg_tp_bwd = (RG_TRAIN_BATCH, rgt.num_heads // TP_WORLD, rgt.num_kv_heads,
                  RG_TRAIN_SEQ, rgt.resolved_head_dim)
     cases += [(rg_tp_bwd, bf16, True), (rg_tp_bwd, f32, True)]
+    # a dist_tp rank's whisper-tiny training step at 3 of 6 q and kv heads:
+    # the encoder's unmasked attention over its 1500 frames, the decoder's
+    # causal attention over its prompt
+    wh_tp_bwd = (WH_BATCH, wh.num_heads // TP_WORLD,
+                 wh.num_kv_heads // TP_WORLD, wh.encoder_seq,
+                 wh.resolved_head_dim)
+    wh_tp_dec_bwd = (WH_BATCH, wh.num_heads // TP_WORLD,
+                     wh.num_kv_heads // TP_WORLD, WH_PROMPT,
+                     wh.resolved_head_dim)
+    cases += [(wh_tp_bwd, bf16, False), (wh_tp_bwd, f32, False),
+              (wh_tp_dec_bwd, bf16, True), (wh_tp_dec_bwd, f32, True)]
     # the tensor-core route's tile edges (64-row key tiles; query tiles of 64
     # rows, 32 at hd 128, in the dK/dV walk; key tiles of 64, 32 at hd 128,
     # in the dQ walk): one, two and three tiles, each ragged by one either
@@ -1486,8 +1518,8 @@ def phase_flash_bwd() -> list[dict]:
                "library_call": "scaled_dot_product_attention(is_causal, "
                                "enable_gqa), no log-sum-exp"}
 
-    def kern(*t, slices=None):
-        return fk.flash_attention_bwd_kernel(*t, causal=True, slices=slices)
+    def kern(*t, slices=None, causal=True):
+        return fk.flash_attention_bwd_kernel(*t, causal=causal, slices=slices)
 
     ms = time_ms(lambda: kern(q, k, v, o, lse, do), REPS)
     per_kernel = device_kernels_ms(lambda: kern(q, k, v, o, lse, do))
@@ -1497,8 +1529,11 @@ def phase_flash_bwd() -> list[dict]:
     del f32_in
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
                        max(2, REPS // 10))
-    library_call = ("autograd.grad of scaled_dot_product_attention"
-                    "(is_causal, enable_gqa)")
+    def sdpa_bwd_call(causal=True):
+        return ("autograd.grad of scaled_dot_product_attention("
+                + ("is_causal, " if causal else "") + "enable_gqa)")
+
+    library_call = sdpa_bwd_call()
     library_ms = sdpa_bwd_ms(q, k, v, do, REPS)
     library_ms_f32 = sdpa_bwd_ms(q.float(), k.float(), v.float(), do.float(),
                                  max(2, REPS // 4))
@@ -1508,55 +1543,64 @@ def phase_flash_bwd() -> list[dict]:
 
     # the sweep route at recurrentgemma-9b's training shape (hd 256, MQA 16:1,
     # the train phase's launches of it) at each slice count, and at
-    # stablelm-12b's heads (hd 160, GQA 32:8): checked against the plain
-    # formulas, timed beside them and SDPA's backward
-    def sweep_row(B, H, KV, S, hd, slice_counts):
+    # stablelm-12b's heads (hd 160, GQA 32:8); the hd-64 tensor-core route at
+    # a whisper-tiny tp rank's unmasked encoder and causal decoder: checked
+    # against the plain formulas, timed beside them and SDPA's backward
+    def sweep_row(B, H, KV, S, hd, slice_counts, causal=True):
         if fk.bwd_route(bf16, hd) != "tensor_cores":
             raise AssertionError(f"flash_attention_bwd at hd {hd}: route "
                                  f"{fk.bwd_route(bf16, hd)}")
         sq, sdo = randn((B, H, S, hd), bf16), randn((B, H, S, hd), bf16)
         sk, sv = randn((B, KV, S, hd), bf16), randn((B, KV, S, hd), bf16)
-        so, slse = fk.flash_attention_kernel(sq, sk, sv, with_lse=True)
+        so, slse = fk.flash_attention_kernel(sq, sk, sv, causal=causal,
+                                             with_lse=True)
         args = (sq, sk, sv, so, slse, sdo)
-        want = attention_bwd_ref(*args)
+        want = attention_bwd_ref(*args, causal=causal)
         auto = fk.bwd_slices(bf16, B, H, KV, S, hd, torch.cuda.
                              get_device_properties(dev).multi_processor_count)
         atol, rtol = BWD_TOL["bfloat16"]
         by_slices = {}
         for n in sorted({auto, *slice_counts}):
-            got = fk.flash_attention_bwd_kernel(*args, slices=n)
+            got = fk.flash_attention_bwd_kernel(*args, causal=causal,
+                                                slices=n)
             err = 0.0
             for what, a, w in zip(("dq", "dk", "dv"), got, want):
                 torch.testing.assert_close(
                     a.float(), w.float(), atol=atol, rtol=rtol,
                     msg=lambda m: f"{what} at slices {n}: {m}")
                 err = max(err, float((a.float() - w.float()).abs().max()))
-            again = fk.flash_attention_bwd_kernel(*args, slices=n)
+            again = fk.flash_attention_bwd_kernel(*args, causal=causal,
+                                                  slices=n)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"flash_attention_bwd {B, H, KV, S, hd} "
                                      f"slices {n}: two calls differ")
             del got, again
             errs["bfloat16"] = max(errs["bfloat16"], err)
-            checked.append([B, H, KV, S, hd, "bfloat16", "causal",
+            mask = "causal" if causal else "full"
+            checked.append([B, H, KV, S, hd, "bfloat16", mask,
                             "tensor_cores", err, f"slices {n}"])
             by_slices[n] = {
                 "max_abs_err": err,
-                "ms": time_ms(lambda: kern(*args, slices=n), REPS),
+                "ms": time_ms(lambda: kern(*args, slices=n, causal=causal),
+                              REPS),
                 "device_kernels_ms": device_kernels_ms(
-                    lambda: kern(*args, slices=n))}
+                    lambda: kern(*args, slices=n, causal=causal))}
         del want
-        flops = int(2.5 * 4 * B * H * (S * (S + 1) // 2) * hd)
+        pairs = S * (S + 1) // 2 if causal else S * S
+        flops = int(2.5 * 4 * B * H * pairs * hd)
         nbytes = 2 * (4 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
         bnd, bnd_by = bound(nbytes, flops, BF16_OPS_PER_S)
-        out = {"timed_shape": [B, H, KV, S, hd, "bfloat16", "causal"],
+        out = {"timed_shape": [B, H, KV, S, hd, "bfloat16",
+                               "causal" if causal else "full"],
                "route": "tensor_cores", "slices": auto,
                "ms": by_slices[auto]["ms"],
                "device_kernels_ms": by_slices[auto]["device_kernels_ms"],
-               "plain_ms": time_ms(lambda: attention_bwd_ref(*args), 2),
+               "plain_ms": time_ms(lambda: attention_bwd_ref(
+                   *args, causal=causal), 2),
                "bound_ms": bnd, "bound_by": bnd_by, "flops": flops,
                "bytes": nbytes,
-               "library_ms": sdpa_bwd_ms(sq, sk, sv, sdo, REPS),
-               "library_call": library_call,
+               "library_ms": sdpa_bwd_ms(sq, sk, sv, sdo, REPS, causal),
+               "library_call": sdpa_bwd_call(causal),
                "occupancy": fk.flash_attention_bwd_occupancy(hd)}
         if len(by_slices) > 1:
             out["by_slices"] = by_slices
@@ -1568,7 +1612,9 @@ def phase_flash_bwd() -> list[dict]:
                            RG_TRAIN_SEQ, rgc.resolved_head_dim, SWEEP_SLICES),
         "hd160": sweep_row(2, slc.num_heads, slc.num_kv_heads, TRAIN_SEQ,
                            slc.resolved_head_dim, ()),
-        "hd256_tp2": sweep_row(*rg_tp_bwd, ())}
+        "hd256_tp2": sweep_row(*rg_tp_bwd, ()),
+        "whisper_encoder_tp2": sweep_row(*wh_tp_bwd, (), causal=False),
+        "whisper_decoder_tp2": sweep_row(*wh_tp_dec_bwd, ())}
     torch.cuda.synchronize()
     emit({"phase": "lm_kernels_bwd", "card": card_line(),
           "routes": dict(fk.BWD_ROUTE_LAUNCHES), "checked": checked,
@@ -1606,17 +1652,23 @@ def phase_flash_bwd() -> list[dict]:
              "tensor_cores_hd160": sweeps["hd160"],
              # a dist_tp rank's recurrentgemma-9b step: 8 of 16 q heads
              "tensor_cores_hd256_tp2": sweeps["hd256_tp2"],
+             # a dist_tp rank's whisper-tiny encoder (unmasked) and decoder
+             # (causal): 3 of 6 heads
+             "tensor_cores_whisper_encoder_tp2":
+                 sweeps["whisper_encoder_tp2"],
+             "tensor_cores_whisper_decoder_tp2":
+                 sweeps["whisper_decoder_tp2"],
              "checked_shapes": checked}]
 
 
-def sdpa_bwd_ms(q, k, v, do, reps: int) -> float:
-    """CUDA-event time of ``autograd.grad`` of causal SDPA with
-    ``enable_gqa`` at these inputs: the library yardstick of the flash
+def sdpa_bwd_ms(q, k, v, do, reps: int, causal: bool = True) -> float:
+    """CUDA-event time of ``autograd.grad`` of SDPA (causal, or unmasked)
+    with ``enable_gqa`` at these inputs: the library yardstick of the flash
     backward, never called by the port."""
     import torch
     import torch.nn.functional as F
     qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                          enable_gqa=True)
     return time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
                                                retain_graph=True), reps)
@@ -4531,14 +4583,17 @@ TP_COLLECTIVE_TIMEOUT = 120        # seconds a gloo collective may wait
 TP_REC_GEN = 8
 # qwen2-moe-a2.7b's 60 experts split over the 2 ranks (EP, the global
 # routing), with sp_decode on; its train leg waits for the smoke's time
-# (ROADMAP: the gateway's host time first)
+# (ROADMAP: the gateway's host time first).  whisper-tiny's 6 heads split
+# 3 a rank in its encoder, decoder and cross attention, its prompt over
+# the pipeline's 1500 encoder frames, sp_decode off and on
 TP_SERVE_LEGS = (("yi-6b", YI_BATCH, YI_PROMPT, GEN, (False, True)),
                  ("mamba2-370m", MAMBA_BATCH, MAMBA_PROMPT, TP_REC_GEN,
                   (True,)),
                  ("recurrentgemma-9b", RG_BATCH, RG_PROMPT, TP_REC_GEN,
                   (True,)),
                  ("qwen2-moe-a2.7b", MOE_BATCH, MOE_PROMPT, TP_REC_GEN,
-                  (True,)))
+                  (True,)),
+                 ("whisper-tiny", WH_BATCH, WH_PROMPT, GEN, (False, True)))
 # a moe rank's top-K may take LM's choice only where its own router logits
 # of the two choices lie at most this many bf16 spacings apart: a near tie
 # at bf16.  The tp residual stream differs from LM's in the last bits
@@ -4567,12 +4622,15 @@ TP_SERVE_TOL = {"mamba2-370m": 0.25}
 # the train legs, full width: (arch, depths tried, most first: the first at
 # which world size 1 and both ranks fit, batch, seq); minicpm-2b the
 # train phase's cell, mamba2-370m and recurrentgemma-9b the train phase's
-# scan cells
+# scan cells; whisper-tiny whole (4 decoder layers, and its 4 encoder
+# layers always) at the serve cell's batch, its decoder over a prompt's
+# length of tokens and the 1500 frames
 TP_TRAIN_LEGS = ((TRAIN_ARCH, (40, 20, 10), TRAIN_BATCH, TRAIN_SEQ),
                  (MAMBA_TRAIN_ARCH, (48, 24, 12), MAMBA_TRAIN_BATCH,
                   MAMBA_TRAIN_SEQ),
                  ("recurrentgemma-9b", (RG_TRAIN_LAYERS, 3), RG_TRAIN_BATCH,
-                  RG_TRAIN_SEQ))
+                  RG_TRAIN_SEQ),
+                 ("whisper-tiny", (4,), WH_BATCH, WH_PROMPT))
 # the tp step's grad norm, and each leaf's gradient norm, against world
 # size 1's, both bf16 (the row-split products' partial sums round to bf16
 # before the all-reduce adds them), about 4 times the largest gaps read on
@@ -4874,6 +4932,10 @@ def tp_rank_serve(rank: int, tmp: Path, arch: str, batch: int, prompt: int,
     gc.collect()
     torch.cuda.empty_cache()
     tokens, drive = inputs["tokens"].cuda(), inputs["ids"].cuda()
+    # an encdec's prompt: its encoder frames beside the tokens
+    prompt_batch = {"tokens": tokens, **(
+        {"encoder_frames": inputs["encoder_frames"].cuda()}
+        if "encoder_frames" in inputs else {})}
     mesh = make_dev_mesh(1, TP_WORLD, device="cuda", backend="gloo")
     lm = LM(cfg, max_seq=total, device="cuda")
     pshape = ShapeConfig("smoke", "prefill", prompt, batch)
@@ -4908,7 +4970,7 @@ def tp_rank_serve(rank: int, tmp: Path, arch: str, batch: int, prompt: int,
             with follow:
                 before = lm_launches()
                 t0 = time.perf_counter()
-                logits, cache = pf(params, {"tokens": tokens})
+                logits, cache = pf(params, prompt_batch)
                 torch.cuda.synchronize()
                 t_prefill = time.perf_counter() - t0
                 coll_prefill = meter.take()
@@ -5400,15 +5462,18 @@ def tp_lm_serve(tmp: Path, arch: str, batch: int, prompt: int,
     cfg = serve_config(arch)
     total = prompt + gen
     pshape = ShapeConfig("smoke", "prefill", prompt, batch)
-    tokens = torch.from_numpy(TokenPipeline(cfg, pshape, seed=SEED)
-                              .prefill_batch(0)["tokens"]).cuda()
+    pbatch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+        cfg, pshape, seed=SEED).prefill_batch(0).items()}
+    tokens = pbatch.pop("tokens")
+    frames = pbatch.get("encoder_frames")     # an encdec's, else None
     lm = LM(cfg, max_seq=total, device="cuda")
     lm.init(SEED, torch.bfloat16)
 
     def run(drive=None):
         """The prefill's logits and each decode step's (on the host) and
         the ids fed: ``drive``'s, else the greedy ones."""
-        logits, cache = lm.prefill(tokens, cache_len=total)
+        logits, cache = lm.prefill(tokens, cache_len=total,
+                                   encoder_frames=frames)
         out, ids = [logits.float().cpu()], []
         for s in range(gen):
             ids.append(logits.argmax(dim=-1)[:, None] if drive is None
@@ -5418,7 +5483,7 @@ def tp_lm_serve(tmp: Path, arch: str, batch: int, prompt: int,
         return out, torch.cat(ids, dim=1)
 
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(tokens, cache_len=total)
+    logits, cache = lm.prefill(tokens, cache_len=total, encoder_frames=frames)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     del logits, cache
@@ -5443,9 +5508,11 @@ def tp_lm_serve(tmp: Path, arch: str, batch: int, prompt: int,
         out["lm_vs_f32_max_abs_err"] = max(
             float((b - a).abs().max()) for a, b in zip(f32, want))
     torch.save({"tokens": tokens.cpu(), "ids": ids.cpu(),
-                **({"routes": routes} if routes else {})},
+                **({"routes": routes} if routes else {}),
+                **({"encoder_frames": frames.cpu()}
+                   if frames is not None else {})},
                tmp / f"serve-inputs-{arch}.pt")
-    del lm, tokens
+    del lm, tokens, frames, pbatch
     gc.collect()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_arm
@@ -5479,7 +5546,10 @@ def phase_dist_tp(tmp: Path) -> dict:
        over 8 of 16 kv heads, each moe layer taking ``LM``'s top-K only at
        a near tie in its own router logits (``FollowRoutes``, within
        ROUTE_TIE_ULPS bf16 spacings, on at most ROUTE_FLIP_SHARE of the
-       routings; the flips counted by gap); each
+       routings; the flips counted by gap); full whisper-tiny (batch 4, a
+       decoder prompt of 384 over 1500 encoder frames, GEN steps) with
+       ``sp_decode`` off and on, flash 8 times a rank's prefill at 3 of 6
+       q and kv heads (its 4 encoder layers unmasked); each
        rank's parameter bytes
        ``model_memory``'s tp count; the ranks make their weights in turn;
     3. train (TP_TRAIN_LEGS), full width, DIST_STEPS steps of the tp step
@@ -5488,12 +5558,14 @@ def phase_dist_tp(tmp: Path) -> dict:
        rows reversed) on the same weights and batches, each leg at the
        first of its depths at which world size 1 and both ranks fit the
        card (each out-of-memory recorded): minicpm-2b (2 x 1024; 40, 20,
-       10 layers), mamba2-370m (4 x 2048; 48, 24, 12) and
-       recurrentgemma-9b (2 x 1024; 6, 3): loss within REMAT_TOL, grad
+       10 layers), mamba2-370m (4 x 2048; 48, 24, 12),
+       recurrentgemma-9b (2 x 1024; 6, 3) and whisper-tiny (4 x 384 over
+       1500 frames; all 4 layers): loss within REMAT_TOL, grad
        norm within TP_GRAD_NORM_RTOL and each leaf's gradient norm within
        TP_LEAF_NORM_RTOL; each kernel and its backward once a layer of
-       its kind a step on each rank (flash at 18 of 36 heads, or 8 of 16;
-       SSD at 16 of 32 heads; RG-LRU at 2048 of 4096).
+       its kind a step on each rank (flash at 18 of 36 heads, 8 of 16, or
+       3 of 6, whisper's encoder unmasked; SSD at 16 of 32 heads; RG-LRU
+       at 2048 of 4096).
     All legs of a depth run in the same two rank processes.  Prints each
     leg's seconds, each rank's peak memory beside ``model_memory`` for tp
     on (1, 2), and the bytes the collectives moved and their share of the

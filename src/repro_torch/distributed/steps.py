@@ -66,28 +66,27 @@ attention layers decode through
 :func:`~.decode_attn.sp_decode_attention`.
 
 ``mode="tp"`` with a ``model`` axis above 1 runs tensor-parallel compute
-over that axis for the dense, vlm, ssm, hybrid and moe families
-(:mod:`~.tensor_parallel`): each rank reads its block of every leaf the
-rules split over ``model`` (heads, kv heads, mlp, ssm heads and
-``d_inner``, the lru width, the padded vocab, the experts under EP or
-each expert's ffn dim under expert-TP, the router's columns under EP) in
-place, never gathered (``split_of``'s ``in_place``; an EP expert's ffn
-dim split over the data axes is gathered over those), the context
-reaches the model, whose
-products meet the whole residual stream through the ``model`` group's
-all-reduces (a leaf replicated over ``model`` that each rank uses for
-its own heads or width only has its gradient summed over ``model``
-there: ``transformer._partly_used``, ``ssm._own_params``, the rec
-gates).  The logits leave as this rank's vocab block; a prefill's
-cache holds this rank's block of the ssm heads and the lru width as the
-model wrote it, and its attention slots, written whole on every rank,
-leave as this rank's block under ``sp_decode``.  A moe layer routes the
+over that axis for every family (:mod:`~.tensor_parallel`): each rank
+reads its block of every leaf the rules split over ``model`` (heads, kv
+heads, mlp, ssm heads and ``d_inner``, the lru width, the padded vocab,
+the experts under EP or each expert's ffn dim under expert-TP, the
+router's columns under EP) in place, never gathered (``split_of``'s
+``in_place``; an EP expert's ffn dim split over the data axes is gathered
+over those), the context reaches the model, whose products meet the
+whole residual stream through the ``model`` group's all-reduces (a leaf
+replicated over ``model`` that each rank uses for its own heads or width
+only has its gradient summed over ``model`` there:
+``transformer._partly_used``, ``ssm._own_params``, the rec gates; so has
+whisper's encoder output, which each rank's cross attention reads for
+its own heads).  The logits leave as this rank's vocab block; a
+prefill's cache holds this rank's block of the ssm heads and the lru
+width as the model wrote it, and its attention slots (an encdec's self
+and cross K/V too), written whole on every rank, leave as this rank's
+block under ``sp_decode`` (the self slots only).  A moe layer routes the
 same tokens on every ``model`` rank, as at one rank, under either
-routing (``models/moe.py``).  Every step builder
-raises there for the encdec family, whose layers have no
-tensor-parallel compute yet (ROADMAP A10b-4d), for an ssm config whose
-rules split ``d_inner`` but not its heads, and for a hybrid one whose
-``model`` axis does not divide the RG-LRU's gate blocks.
+routing (``models/moe.py``).  Every step builder raises there for an ssm
+config whose rules split ``d_inner`` but not its heads, and for a hybrid
+one whose ``model`` axis does not divide the RG-LRU's gate blocks.
 ``build_decode_step`` in ``fsdp`` with ``ctx.sp_decode`` raises for a
 config whose decode reaches ``sp_decode_attention``, where the
 reference fails too.
@@ -155,22 +154,12 @@ def cache_specs(lm, B: int, cache_len: int, dtype=torch.bfloat16) -> dict:
     return map_tree(lambda t: TensorSpec(tuple(t.shape), t.dtype), cache)
 
 
-# the families whose layers have no tensor-parallel compute over 'model' yet
-NOT_TP = ("encdec",)
-
-
 def _check_mode(ctx: DistContext, cfg) -> None:
     """Raises before a step is built where tp over ``model`` cannot run
-    ``cfg``: its family's layers (``NOT_TP``), or a split the ssm and rec
-    mixers refuse (``ssm.check_tp``, ``griffin.check_tp``)."""
+    ``cfg``: a split the ssm and rec mixers refuse (``ssm.check_tp``,
+    ``griffin.check_tp``)."""
     if not tensor_parallel.over_model(ctx):
         return
-    if cfg.family in NOT_TP:
-        raise NotImplementedError(
-            f"{cfg.name}: mode='tp' with a 'model' axis above 1 needs "
-            f"tensor-parallel compute in the {cfg.family} family's layers, "
-            f"which is not ported yet (ROADMAP A10b-4d); use mode='fsdp', "
-            f"or a 'model' axis of 1 (data parallel)")
     kinds = set(cfg.layer_kinds())
     if "ssm" in kinds:
         ssm.check_tp(cfg, ctx)

@@ -1,6 +1,6 @@
 """Tensor-parallel compute over the mesh's ``model`` axis (Megatron's
-operators), for the tp steps of the dense, vlm, ssm, hybrid and moe
-families.
+operators), for the tp steps of the dense, vlm, ssm, hybrid, moe and
+encdec families.
 
 The reference has no module for this: its GSPMD steps split heads, kv
 heads, mlp, the padded vocab and the experts (or each expert's ffn dim)
@@ -13,7 +13,8 @@ operators on the ``model`` group:
 
 - :func:`to_model`: the identity forward, an all-reduce of the gradient
   backward: the input to a column-split product (wq, wk, wv; w_gate,
-  w_up; the logits' vocab block);
+  w_up; the logits' vocab block; whisper's encoder output before the
+  cross K/V);
 - :func:`from_model`: an all-reduce forward, the identity backward: the
   output of a row-split product (wo, w_down, a mixer's w_out), the
   vocab-split embedding's rows, the cross entropy's sums;

@@ -102,7 +102,7 @@ class LM:
         if cfg.family == "encdec":
             enc = encdec.encoder_forward(
                 params, self._input(encoder_frames, "encoder_frames"), cfg,
-                gather)
+                gather, ctx)
             x = gather.run(
                 lambda pos: x + pos[:x.shape[1]][None].to(x.dtype),
                 params["dec_pos"])
@@ -113,7 +113,7 @@ class LM:
         positions = torch.arange(S, device=self.device).expand(B, S)
         if cfg.family == "encdec":
             x = encdec.decoder_forward(params, x, enc, cfg, positions, cache,
-                                       gather)
+                                       gather, ctx)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
             x, aux = transformer.decoder_forward(params["decoder"], x, cfg,
@@ -178,7 +178,9 @@ class LM:
         the moe layers then route the group's tokens, as the reference's
         step does (:mod:`repro_torch.models.moe`); under tp with a
         ``model`` axis above one rank, ``params`` this rank's blocks of
-        the heads, mlp, ssm heads, lru width and vocab, the embedding, the logits and the cross
+        the heads, mlp, ssm heads, lru width and vocab (an encdec's
+        encoder, decoder and cross attention at this rank's heads,
+        ``models/encdec.py``), the embedding, the logits and the cross
         entropy vocab-split (``distributed/tensor_parallel.py``), the
         tied embedding's two gradients on its local vocab block.
         ``remat``: none, dots
@@ -210,8 +212,10 @@ class LM:
         ``LM.prefill(params, batch, ctx)`` takes them: with a
         ``DistContext`` whose batch group has several ranks (this rank's
         rows of a split batch), the moe layers route the group's tokens;
-        under tp with a ``model`` axis above one rank the logits are this
-        rank's vocab block.  ``gather`` as :meth:`loss`."""
+        under tp with a ``model`` axis above one rank every family's
+        layers run at this rank's blocks (:meth:`loss`; an encdec's cache
+        still holds every kv head of its self and cross K/V) and the
+        logits are this rank's vocab block.  ``gather`` as :meth:`loss`."""
         params = self.params if params is None else params
         cache = self._prompt_cache(tokens, cache_len, vision_embeds,
                                    encoder_frames, params["embed"].dtype, ctx)

@@ -22,7 +22,9 @@ hook (:class:`WholeParams` by default; a sharded step's per-unit gather,
 ``distributed/fsdp.py``).
 
 Under a tp context with a ``model`` axis above one rank (the dense,
-vlm, ssm, hybrid and moe families) each rank holds its block of the heads (where ``make_rules``
+vlm, ssm, hybrid and moe families; the encdec family's layers, in
+:mod:`.encdec`, share :func:`self_attention` and
+:func:`self_attention_step`) each rank holds its block of the heads (where ``make_rules``
 splits them), of the kv heads (where it splits those) and of the mlp
 width, read in place, and the residual stream stays whole on every rank:
 an attention block's and a SwiGLU's input enters through ``to_model``,
@@ -222,39 +224,62 @@ def _window(cfg) -> int:
     return cfg.local_window if cfg.block_pattern else 0
 
 
-def attn_block_fwd(lp, x, cfg, positions, entry, ctx=None):
-    """One attention block over full sequences -> (x, the FFN's aux or
-    None); writes k/v into the layer's cache views ``entry`` (B,KV,Sc,hd)
-    when given.
+def _read_kv(hs: HeadSplit | None, cfg, k, v, dim: int):
+    """The kv heads (on ``dim``) this rank's q heads read, of k/v as its
+    own kv projection made them: all of its block where the kv heads are
+    split, else those of every kv head its q heads map to."""
+    if hs is None or hs.kv_split:
+        return k, v
+    return _own_kv(hs, cfg, k, v, dim)
 
-    With a local window, the reference's dispatch: banded attention only
-    when S > window and S % window == 0, full causal attention otherwise
-    (also for S > window not a multiple of it); the cache is a ring
-    holding the last ``window`` keys, token p in slot p % window.  Under
-    a tp context, this rank's heads (module docstring)."""
-    hs = head_split(cfg, ctx)
+
+def self_attention(pa, x, ln, cfg, positions, hs: HeadSplit | None = None,
+                   *, causal: bool = True, window: int = 0,
+                   want_kv: bool = False):
+    """The attention half of a block over full sequences, its residual
+    not added: ``x`` normed by ``ln``, this rank's heads of ``pa`` (``hs``,
+    the layer's :func:`head_split`) attending, their output summed over
+    ``model`` -> (y (B,S,d), the cache's (k, v) or None).  Flash, causal
+    or unmasked (the whisper encoder); with a local ``window``, the
+    reference's dispatch: banded attention only when S > window and S %
+    window == 0, full causal attention otherwise.  ``want_kv`` (the no-grad
+    prefill): k/v (B,KV,S,hd) holding every kv head, a split block
+    gathered over ``model``."""
     group = None if hs is None else hs.group
-    h = tp.to_model(rms_norm(x, lp["ln1"], cfg.norm_eps), group)
-    q, k, v = attn.qkv_project(_partly_used(lp["attn"], hs), h, cfg,
-                               positions)
-    S, window = x.shape[1], _window(cfg)
-    ka, va = k, v                 # a split kv head block is this rank's
-    if hs is not None and not hs.kv_split:
-        ka, va = _own_kv(hs, cfg, k, v, 2)
+    h = tp.to_model(rms_norm(x, ln, cfg.norm_eps), group)
+    q, k, v = attn.qkv_project(_partly_used(pa, hs), h, cfg, positions)
+    S = x.shape[1]
+    ka, va = _read_kv(hs, cfg, k, v, 2)
     kh, vh = ka.transpose(1, 2).contiguous(), va.transpose(1, 2).contiguous()
     if window and S > window and S % window == 0:
         o = attn.banded_local_attention(q, ka, va, window=window)
     else:
-        o = attn.prefill_attention(q, kh, vh)
-    x = x + _o_proj(o, lp["attn"]["wo"], group)
+        o = attn.prefill_attention(q, kh, vh, causal=causal)
+    y = _o_proj(o, pa["wo"], group)
+    if not want_kv:
+        return y, None
+    if hs is not None and hs.kv_split:
+        kh, vh = tp.gather_model(kh, 1, group), tp.gather_model(vh, 1, group)
+    elif hs is not None:
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    return y, (kh, vh)
+
+
+def attn_block_fwd(lp, x, cfg, positions, entry, ctx=None):
+    """One attention block over full sequences -> (x, the FFN's aux or
+    None); writes k/v into the layer's cache views ``entry`` (B,KV,Sc,hd)
+    when given.  With a local window (:func:`self_attention`) the cache is
+    a ring holding the last ``window`` keys, token p in slot p % window.
+    Under a tp context, this rank's heads (module docstring)."""
+    S, window = x.shape[1], _window(cfg)
+    y, kv = self_attention(lp["attn"], x, lp["ln1"], cfg, positions,
+                           head_split(cfg, ctx), window=window,
+                           want_kv=entry is not None)
+    x = x + y
     y, aux = _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, ctx)
     x = x + y
     if entry is not None:
-        if hs is not None and hs.kv_split:       # every kv head in the cache
-            kh, vh = tp.gather_model(kh, 1, group), tp.gather_model(vh, 1,
-                                                                    group)
-        elif hs is not None:
-            kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        kh, vh = kv
         if window and S >= window:
             shift = (S - window) % window
             entry["k"].copy_(torch.roll(kh[:, :, -window:], shift, dims=2))
@@ -299,33 +324,44 @@ def block_fwd(kind, lp, x, cfg, positions, entry, ctx=None):
     return attn_block_fwd(lp, x, cfg, positions, entry, ctx)
 
 
-def attn_block_dec(lp, x, cfg, pos, entry, ctx=None):
-    """One attention block, one token; the reference's branch order: a
-    local window's ring, else ``sp_decode_attention`` when ``ctx`` asks
-    for sequence-parallel decode, else the plain cache write and
-    attention.  ``ctx`` also reaches the moe FFN; under a tp context, this
-    rank's heads (module docstring)."""
-    hs = head_split(cfg, ctx)
+def self_attention_step(pa, x, ln, cfg, pos, kc, vc,
+                        hs: HeadSplit | None = None, ctx=None, *,
+                        window: int = 0):
+    """The attention half of a block for one token, its residual not
+    added: the reference's branch order: a local ``window``'s ring, else
+    ``sp_decode_attention`` when ``ctx`` asks for sequence-parallel
+    decode, else the plain write into the caches ``kc``/``vc`` (B,KV,Sc,hd,
+    every kv head: a split block's k/v gathered over ``model`` first) and
+    attention at this rank's heads (``hs``, the layer's
+    :func:`head_split`), summed over ``model``."""
     group = None if hs is None else hs.group
-    h = tp.to_model(rms_norm(x, lp["ln1"], cfg.norm_eps), group)
-    q, k, v = attn.qkv_project(lp["attn"], h, cfg, pos[:, None])
+    h = tp.to_model(rms_norm(x, ln, cfg.norm_eps), group)
+    q, k, v = attn.qkv_project(pa, h, cfg, pos[:, None])
     if hs is not None and hs.kv_split:           # every kv head in the cache
         k, v = tp.gather_model(k, 2, group), tp.gather_model(v, 2, group)
-    window = _window(cfg)
     if window:
-        kc, vc = attn.cache_write_window(entry["k"], entry["v"], k, v, pos)
+        kc, vc = attn.cache_write_window(kc, vc, k, v, pos)
         o = attn.decode_attention_window(q, *_own_kv(hs, cfg, kc, vc, 1), pos,
                                          window=window)
     elif ctx is not None and ctx.sp_decode:
         qa = q if hs is None else tp.gather_model(q, 2, group)
-        o, _, _ = sp_decode_attention(ctx, qa, entry["k"], entry["v"], k, v,
-                                      pos)
+        o, _, _ = sp_decode_attention(ctx, qa, kc, vc, k, v, pos)
         if hs is not None:
             o = o.narrow(2, hs.first, hs.heads)
     else:
-        kc, vc = attn.cache_write_plain(entry["k"], entry["v"], k, v, pos)
+        kc, vc = attn.cache_write_plain(kc, vc, k, v, pos)
         o = attn.decode_attention_plain(q, *_own_kv(hs, cfg, kc, vc, 1), pos)
-    x = x + _o_proj(o, lp["attn"]["wo"], group)
+    return _o_proj(o, pa["wo"], group)
+
+
+def attn_block_dec(lp, x, cfg, pos, entry, ctx=None):
+    """One attention block, one token (:func:`self_attention_step`);
+    ``ctx`` also reaches the moe FFN; under a tp context, this rank's
+    heads (module docstring)."""
+    x = x + self_attention_step(lp["attn"], x, lp["ln1"], cfg, pos,
+                                entry["k"], entry["v"],
+                                head_split(cfg, ctx), ctx,
+                                window=_window(cfg))
     return x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
                     ctx)[0]
 

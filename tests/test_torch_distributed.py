@@ -66,11 +66,11 @@ from repro.distributed.context import DistContext as RefContext  # noqa: E402
 from repro.distributed.steps import build_train_step as ref_build  # noqa: E402
 from repro.models import LM as RefLM  # noqa: E402
 from repro.optim import init_opt_state as ref_init_opt  # noqa: E402
-from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.reducer import tree_flatten_with_path  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
-from repro_torch.distributed import DistContext, build_train_step  # noqa: E402
+from repro_torch.distributed import DistContext  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 
@@ -366,28 +366,6 @@ def test_each_rank_holds_its_share_of_the_optimizer_state(run):
 # ----------------------------------------------------------------------
 # in the test process: no ranks
 # ----------------------------------------------------------------------
-
-# one config of each family whose layers have no tensor-parallel compute
-NOT_TP = ("whisper-tiny",)
-
-
-@pytest.mark.parametrize("arch", NOT_TP)
-def test_tp_mode_with_a_model_axis_raises_not_implemented(arch):
-    """The encdec family has no tensor-parallel compute over ``model``
-    yet: ``build_train_step`` in tp with a ``model`` axis above one rank
-    raises, naming ROADMAP A10b-4d (the dense and vlm families run there:
-    ``tests/test_torch_tp.py``; the ssm and hybrid families:
-    ``tests/test_torch_tp_recurrent.py``; the moe family:
-    ``tests/test_torch_tp_moe.py``)."""
-    cfg = get_config(arch, reduced=True)
-    lm = LM(cfg, max_seq=32, device="cpu")
-    shape = ShapeConfig("t", "train", 32, 8)
-    for axes in ({"data": 2, "model": 2}, {"data": 1, "model": 4},
-                 {"pod": 2, "data": 2, "model": 2}):
-        ctx = DistContext.create(cfg, axes, mode="tp")
-        with pytest.raises(NotImplementedError, match="A10b-4d"):
-            build_train_step(lm, TrainConfig(), ctx, shape)
-
 
 def test_vocab_parallel_raises_not_implemented():
     """(Named from when the port refused the flag.)  The reference's

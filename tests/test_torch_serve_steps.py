@@ -62,7 +62,7 @@ from repro_torch.configs.registry import _ARCH_MODULES  # noqa: E402
 from repro_torch.core.reducer import tree_map_with_path  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.distributed import (  # noqa: E402
-    DistContext, build_decode_step, build_prefill_step, cache_specs,
+    DistContext, build_decode_step, cache_specs,
 )
 from repro_torch.models import LM  # noqa: E402
 
@@ -292,24 +292,6 @@ def test_cache_specs_match_the_reference(arch):
                    for p, s in worker._flat(cache_specs(lm, B, S,
                                                         dt)).items()}
             assert got == want, (arch, B, S, dt)
-
-
-@pytest.mark.parametrize("arch", ["whisper-tiny"])
-def test_tp_with_a_model_axis_raises_not_implemented(arch):
-    """The serve steps of the encdec family in tp with a ``model`` axis
-    above one rank raise, naming ROADMAP A10b-4d (the dense and vlm
-    families serve there: ``tests/test_torch_tp.py``; the ssm and hybrid
-    families: ``tests/test_torch_tp_recurrent.py``; the moe family:
-    ``tests/test_torch_tp_moe.py``)."""
-    cfg = get_config(arch, reduced=True)
-    lm = LM(cfg, max_seq=32, device="cpu")
-    for axes in ({"data": 2, "model": 2}, {"data": 1, "model": 4},
-                 {"pod": 2, "data": 2, "model": 2}):
-        ctx = DistContext.create(cfg, axes, mode="tp")
-        with pytest.raises(NotImplementedError, match="A10b-4d"):
-            build_prefill_step(lm, ctx, ShapeConfig("p", "prefill", 32, 8))
-        with pytest.raises(NotImplementedError, match="A10b-4d"):
-            build_decode_step(lm, ctx, ShapeConfig("d", "decode", 32, 8))
 
 
 @pytest.mark.parametrize("arch", worker.FAMILIES)
